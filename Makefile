@@ -16,7 +16,7 @@ bench:
 
 lint:
 	python -c "import ast, os, sys; \
-files = [os.path.join(r, f) for r, _, fs in os.walk('whisper_ipa_tpu') for f in fs if f.endswith('.py')]; \
+files = [os.path.join(r, f) for r, _, fs in os.walk('whisper_ipa') for f in fs if f.endswith('.py')]; \
 [ast.parse(open(f).read(), f) for f in files]; \
 print(len(files), 'files parse cleanly')"
 

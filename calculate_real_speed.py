@@ -6,7 +6,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from whisper_ipa_tpu.cli.calculate_real_speed import main
+from whisper_ipa.cli.calculate_real_speed import main
 
 if __name__ == "__main__":
     main()

@@ -8,7 +8,7 @@ not just memorization (every earlier quality proof was overfit-to-train;
 the reference's own validation uses held-out data but needs pretrained
 weights unavailable offline, reference scripts/train_whisper_ipa.py:314-407).
 
-Run (TPU or CPU):
+Run (GPU or CPU):
   python examples/generalization.py --model tiny --steps 600 \
       --out /tmp/gen_exp
 
@@ -39,8 +39,8 @@ PHONES = [
 def make_dataset(root: str, n_train: int, n_heldout: int,
                  min_len: int = 3, max_len: int = 8):
     """Disjoint random phone sequences; separate synth seeds per split."""
-    from whisper_ipa_tpu.audio import write_wav
-    from whisper_ipa_tpu.data.synth import synthesize_phonemes
+    from whisper_ipa.audio import write_wav
+    from whisper_ipa.data.synth import synthesize_phonemes
 
     rng = np.random.default_rng(42)
     seen = set()
@@ -99,10 +99,10 @@ def main(argv=None):
     p.add_argument("--accum-steps", type=int, default=1)
     args = p.parse_args(argv)
 
-    from whisper_ipa_tpu.config import get_config
-    from whisper_ipa_tpu.data.dataset import create_data_loader
-    from whisper_ipa_tpu.models import init_params
-    from whisper_ipa_tpu.train.loop import train, validate
+    from whisper_ipa.config import get_config
+    from whisper_ipa.data.dataset import create_data_loader
+    from whisper_ipa.models import init_params
+    from whisper_ipa.train.loop import train, validate
 
     train_json, heldout_json = make_dataset(
         os.path.join(args.out, "data"), args.n_train, args.n_heldout
@@ -148,8 +148,8 @@ def main(argv=None):
 
     # train-set score (same decode path) for the generalization gap
     train_ds = create_data_loader(train_json, n_mels=cfg.n_mels)
-    from whisper_ipa_tpu.train.checkpoints import latest_checkpoint, restore_checkpoint
-    from whisper_ipa_tpu.train.step import create_train_state
+    from whisper_ipa.train.checkpoints import latest_checkpoint, restore_checkpoint
+    from whisper_ipa.train.step import create_train_state
 
     ckpt = latest_checkpoint(out_dir)
     state, _ = restore_checkpoint(

@@ -1,6 +1,6 @@
 """Transcription latency probe on synthesized audio.
 
-The TPU-era equivalent of the reference's MLX inference PoC
+The JAX equivalent of the reference's MLX inference PoC
 (scripts/experimental/inference_mlx.py): synthesize a dummy waveform,
 transcribe it, report latency (first call includes XLA compile).
 
@@ -17,10 +17,10 @@ import numpy as np
 
 
 def main():
-    from whisper_ipa_tpu.config import CONFIGS, get_config
-    from whisper_ipa_tpu.data.synth import synthesize_ipa
-    from whisper_ipa_tpu.decode import transcribe
-    from whisper_ipa_tpu.models import init_params
+    from whisper_ipa.config import CONFIGS, get_config
+    from whisper_ipa.data.synth import synthesize_ipa
+    from whisper_ipa.decode import transcribe
+    from whisper_ipa.models import init_params
 
     name = sys.argv[1] if len(sys.argv) > 1 else "test-tiny"
     cfg = CONFIGS.get(name) or get_config(name)

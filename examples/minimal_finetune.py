@@ -1,6 +1,6 @@
 """Minimal fine-tuning proof-of-concept on dummy data.
 
-The TPU-era equivalent of the reference's MLX PoC
+The JAX equivalent of the reference's MLX PoC
 (scripts/experimental/finetune_mlx.py): build a tiny model, run a few
 jitted train steps on random mel/token batches, watch the loss fall.
 
@@ -18,9 +18,9 @@ import numpy as np
 def main():
     import jax.numpy as jnp
 
-    from whisper_ipa_tpu.config import CONFIGS
-    from whisper_ipa_tpu.models import init_params
-    from whisper_ipa_tpu.train import create_train_state, train_step
+    from whisper_ipa.config import CONFIGS
+    from whisper_ipa.models import init_params
+    from whisper_ipa.train import create_train_state, train_step
 
     cfg = CONFIGS["test-tiny"]
     params = init_params(cfg, seed=0)

@@ -2,8 +2,7 @@
 perturbed versions of the held-out synthetic test split.
 
 Every corpus-scale learning number so far used the SAME formant
-synthesizer for train and test audio (docs/PERF.md is explicit about
-this). The paper's zero-shot setting is natural speech — unreachable
+synthesizer for train and test audio. The paper's zero-shot setting is natural speech — unreachable
 offline — so the closest offline proxy is ACOUSTIC MISMATCH: corrupt the
 held-out split with conditions the model never saw (additive noise at
 several SNRs, synthetic room reverb, unseen speaker realizations via
@@ -55,7 +54,7 @@ def add_reverb(audio: np.ndarray, rt60: float = 0.3, sr: int = 16000,
 
 def resynth_speaker(entry: dict, idx: int) -> np.ndarray:
     """Unseen speaker realization: jittered f0/duration, fresh seed."""
-    from whisper_ipa_tpu.data.synth import synthesize_ipa
+    from whisper_ipa.data.synth import synthesize_ipa
 
     rng = np.random.default_rng(777_000 + idx)
     f0 = float(rng.uniform(70.0, 260.0))  # outside no one speaker's range
@@ -91,13 +90,13 @@ def main(argv=None):
 
     import jax.numpy as jnp
 
-    from whisper_ipa_tpu.audio import load_audio, log_mel_spectrogram, pad_or_trim
-    from whisper_ipa_tpu.config import get_config
-    from whisper_ipa_tpu.decode import DecodingOptions, decode
-    from whisper_ipa_tpu.metrics.evaluate import evaluate_batch
-    from whisper_ipa_tpu.models import load_checkpoint_model
-    from whisper_ipa_tpu.tokenizer import get_tokenizer
-    from whisper_ipa_tpu.train.loop import load_or_init_params
+    from whisper_ipa.audio import load_audio, log_mel_spectrogram, pad_or_trim
+    from whisper_ipa.config import get_config
+    from whisper_ipa.decode import DecodingOptions, decode
+    from whisper_ipa.metrics.evaluate import evaluate_batch
+    from whisper_ipa.models import load_checkpoint_model
+    from whisper_ipa.tokenizer import get_tokenizer
+    from whisper_ipa.train.loop import load_or_init_params
 
     ckpt = args.checkpoint or os.path.join(args.run_dir, "best-checkpoint")
     cfg = get_config(args.model)

@@ -1,11 +1,11 @@
-// Native audio decode for whisper_ipa_tpu: WAV parsing + resampling.
+// Native audio decode for whisper_ipa: WAV parsing + resampling.
 //
 // The reference shells out to ffmpeg per file (mlx_whisper.audio.load_audio
 // consumed at reference scripts/ipa_data_loader.py:48) — a process spawn and
 // pipe copy per utterance. This decoder parses RIFF/WAVE in-process
 // (PCM 8/16/24/32-bit and float32, any channel count -> mono float32) and
 // resamples with a windowed-sinc polyphase filter. Exposed through ctypes
-// (whisper_ipa_tpu/audio/native.py); the Python implementation remains the
+// (whisper_ipa/audio/native.py); the Python implementation remains the
 // fallback.
 //
 // Build: make -C native

@@ -1,9 +1,9 @@
-// Native metric cores for whisper_ipa_tpu.metrics.
+// Native metric cores for whisper_ipa.metrics.
 //
 // Replaces the reference's third-party C++ editdistance extension
 // (reference scripts/evaluate_ipa.py:100) and provides fast DP cores for the
 // feature-weighted PFER variants, which dominate evaluation wall-clock at
-// scale. Exposed through ctypes (see whisper_ipa_tpu/metrics/native.py).
+// scale. Exposed through ctypes (see whisper_ipa/metrics/native.py).
 //
 // Build: make -C native   (produces libwipa_native.so)
 

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Reference-invocation shim: `python scripts/compute_iaa.py ...` works exactly
 as in the upstream repo; the implementation lives in
-whisper_ipa_tpu.cli.compute_iaa."""
+whisper_ipa.cli.compute_iaa."""
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from whisper_ipa_tpu.cli.compute_iaa import main
+from whisper_ipa.cli.compute_iaa import main
 
 if __name__ == "__main__":
     main()

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Reference-invocation shim: `python scripts/evaluate_ipa.py ...` works exactly
 as in the upstream repo; the implementation lives in
-whisper_ipa_tpu.cli.evaluate_ipa."""
+whisper_ipa.cli.evaluate_ipa."""
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from whisper_ipa_tpu.cli.evaluate_ipa import main
+from whisper_ipa.cli.evaluate_ipa import main
 
 if __name__ == "__main__":
     main()

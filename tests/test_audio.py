@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from whisper_ipa_tpu.audio import (
+from whisper_ipa.audio import (
     N_FRAMES,
     N_SAMPLES,
     SAMPLE_RATE,
@@ -117,7 +117,7 @@ class TestLogMel:
 
 class TestNativeDecoder:
     def test_native_matches_python(self, tmp_path):
-        native = pytest.importorskip("whisper_ipa_tpu.audio.native")
+        native = pytest.importorskip("whisper_ipa.audio.native")
         audio = sine_audio(0.5)
         path = str(tmp_path / "n.wav")
         write_wav(path, audio)
@@ -126,7 +126,7 @@ class TestNativeDecoder:
         assert np.max(np.abs(out - audio)) < 1e-3
 
     def test_native_resamples(self, tmp_path):
-        native = pytest.importorskip("whisper_ipa_tpu.audio.native")
+        native = pytest.importorskip("whisper_ipa.audio.native")
         audio = sine_audio(1.0, freq=220.0, sr=8000)
         path = str(tmp_path / "n8.wav")
         write_wav(path, audio, sr=8000)
@@ -138,14 +138,14 @@ class TestNativeDecoder:
         assert abs(peak_hz - 220.0) < 5.0
 
     def test_native_downsample(self, tmp_path):
-        native = pytest.importorskip("whisper_ipa_tpu.audio.native")
+        native = pytest.importorskip("whisper_ipa.audio.native")
         audio = sine_audio(0.5, freq=440.0, sr=44100)
         path = str(tmp_path / "n44.wav")
         write_wav(path, audio, sr=44100)
         out = native.decode_wav_file(path, 16000)
         assert abs(len(out) - 8000) <= 3
         # compare against the pure-Python path (scipy polyphase) explicitly
-        from whisper_ipa_tpu.audio.io import _decode_wav, resample as _rs
+        from whisper_ipa.audio.io import _decode_wav, resample as _rs
 
         data, orig_sr = _decode_wav(path)
         ref = _rs(data, orig_sr, 16000)
@@ -155,6 +155,6 @@ class TestNativeDecoder:
         assert corr > 0.98
 
     def test_malformed_rejected(self):
-        native = pytest.importorskip("whisper_ipa_tpu.audio.native")
+        native = pytest.importorskip("whisper_ipa.audio.native")
         with pytest.raises(ValueError):
             native.decode_wav_bytes(b"not a wav at all")

@@ -1,8 +1,8 @@
 """bench.py trained-row path: discovery + real-audio measurement.
 
-The driver records BENCH_r*.json unattended; these tests pin the
-checkpoint-discovery contract and drive bench_trained end-to-end on CPU
-so a broken trained row is caught before the recorded run.
+These tests pin the checkpoint-discovery contract and drive
+bench_trained end-to-end on CPU so a broken trained row is caught before
+a run on the card.
 """
 
 import json
@@ -20,12 +20,12 @@ import bench  # noqa: E402
 @pytest.fixture
 def fake_run(tmp_path, monkeypatch):
     """A trained-run directory (test-tiny checkpoint) + 2-utterance data."""
-    from whisper_ipa_tpu.audio import write_wav
-    from whisper_ipa_tpu.config import CONFIGS
-    from whisper_ipa_tpu.data.synth import synthesize_ipa
-    from whisper_ipa_tpu.models import init_params
-    from whisper_ipa_tpu.train.checkpoints import save_checkpoint
-    from whisper_ipa_tpu.train.step import create_train_state
+    from whisper_ipa.audio import write_wav
+    from whisper_ipa.config import CONFIGS
+    from whisper_ipa.data.synth import synthesize_ipa
+    from whisper_ipa.models import init_params
+    from whisper_ipa.train.checkpoints import save_checkpoint
+    from whisper_ipa.train.step import create_train_state
 
     run_dir = tmp_path / "run"
     data_dir = tmp_path / "data"
@@ -53,8 +53,8 @@ def fake_run(tmp_path, monkeypatch):
         json.dump({"training_args": {"model_name": "test-tiny"}}, f)
 
     ckpt = str(run_dir / "checkpoint-5")
-    monkeypatch.setenv("WHISPER_IPA_TPU_BENCH_CKPT", ckpt)
-    monkeypatch.setenv("WHISPER_IPA_TPU_BENCH_DATA", data_json)
+    monkeypatch.setenv("WHISPER_IPA_BENCH_CKPT", ckpt)
+    monkeypatch.setenv("WHISPER_IPA_BENCH_DATA", data_json)
     return ckpt, data_json
 
 
@@ -68,8 +68,8 @@ class TestDiscoverTrained:
         assert model == "test-tiny"  # read from training_config.json
 
     def test_missing_files_skipped(self, monkeypatch):
-        monkeypatch.setenv("WHISPER_IPA_TPU_BENCH_CKPT", "/nonexistent/x")
-        monkeypatch.setenv("WHISPER_IPA_TPU_BENCH_DATA", "/nonexistent/y")
+        monkeypatch.setenv("WHISPER_IPA_BENCH_CKPT", "/nonexistent/x")
+        monkeypatch.setenv("WHISPER_IPA_BENCH_DATA", "/nonexistent/y")
         found = bench.discover_trained()
         # falls through to the well-known paths or None — never the
         # broken env pair

@@ -8,10 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.ops.blockwise_ce import blockwise_cross_entropy
-from whisper_ipa_tpu.train.loss import compute_loss
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.models import init_params
+from whisper_ipa.ops.blockwise_ce import blockwise_cross_entropy
+from whisper_ipa.train.loss import compute_loss
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=16, n_text_ctx=32)
 EOT = 50257

@@ -17,9 +17,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.models.convert import (
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.models import init_params
+from whisper_ipa.models.convert import (
     flatten_params,
     load_checkpoint_model,
     params_from_flat,
@@ -188,8 +188,8 @@ class TestHFFixtureCheckpoint:
         decodes exactly like the source decoder on the base encoder."""
         from safetensors.numpy import save_file
 
-        from whisper_ipa_tpu.decode import DecodingOptions, decode
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
+        from whisper_ipa.decode import DecodingOptions, decode
+        from whisper_ipa.tokenizer import get_tokenizer
 
         ckpt = tmp_path / "ckpt-hf2"
         os.makedirs(ckpt)
@@ -217,9 +217,9 @@ class TestHFFixtureCheckpoint:
 
 class TestVocabProvenance:
     def test_stamp_and_check(self, source_params, tmp_path):
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
-        from whisper_ipa_tpu.train import create_train_state
-        from whisper_ipa_tpu.train.checkpoints import (
+        from whisper_ipa.tokenizer import get_tokenizer
+        from whisper_ipa.train import create_train_state
+        from whisper_ipa.train.checkpoints import (
             check_vocab_provenance,
             save_checkpoint,
         )
@@ -246,9 +246,9 @@ class TestVocabProvenance:
         )
 
     def test_unstamped_checkpoint_passes(self, source_params, tmp_path):
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
-        from whisper_ipa_tpu.train import create_train_state
-        from whisper_ipa_tpu.train.checkpoints import (
+        from whisper_ipa.tokenizer import get_tokenizer
+        from whisper_ipa.train import create_train_state
+        from whisper_ipa.train.checkpoints import (
             check_vocab_provenance,
             save_checkpoint,
         )

@@ -11,7 +11,7 @@ from tests.conftest import REPO_ROOT
 
 def run_cli(module, *args, timeout=240):
     return subprocess.run(
-        [sys.executable, "-m", f"whisper_ipa_tpu.cli.{module}", *args],
+        [sys.executable, "-m", f"whisper_ipa.cli.{module}", *args],
         capture_output=True,
         text=True,
         cwd=REPO_ROOT,
@@ -33,10 +33,10 @@ class TestMetricCLI:
 
 class TestSpeedMonitor:
     def test_log_parse_contract(self, tmp_path):
-        from whisper_ipa_tpu.cli.calculate_real_speed import (
+        from whisper_ipa.cli.calculate_real_speed import (
             parse_log_for_steps,
         )
-        from whisper_ipa_tpu.train.logger import console_step_line
+        from whisper_ipa.train.logger import console_step_line
 
         log = tmp_path / "train.log"
         lines = [
@@ -48,7 +48,7 @@ class TestSpeedMonitor:
         assert steps[0]["samples_per_sec"] == pytest.approx(16.0)
 
     def test_latest_checkpoint_discovery(self, tmp_path):
-        from whisper_ipa_tpu.cli.calculate_real_speed import (
+        from whisper_ipa.cli.calculate_real_speed import (
             get_latest_checkpoint,
         )
 
@@ -64,7 +64,7 @@ class TestSpeedMonitor:
     def test_own_pid_runtime(self):
         import os
 
-        from whisper_ipa_tpu.cli.calculate_real_speed import (
+        from whisper_ipa.cli.calculate_real_speed import (
             get_process_runtime,
         )
 
@@ -107,7 +107,7 @@ class TestUtils:
     def test_tree_count_and_bytes(self):
         import numpy as np
 
-        from whisper_ipa_tpu.utils import tree_bytes, tree_count
+        from whisper_ipa.utils import tree_bytes, tree_count
 
         tree = {"a": np.zeros((2, 3), np.float32), "b": [np.ones(4, np.int32)]}
         assert tree_count(tree) == 10
@@ -116,7 +116,7 @@ class TestUtils:
     def test_step_timer(self):
         import time
 
-        from whisper_ipa_tpu.utils import StepTimer
+        from whisper_ipa.utils import StepTimer
 
         t = StepTimer()
         with t:
@@ -128,9 +128,9 @@ class TestConvertWeights:
     def test_roundtrip_mlx(self, tmp_path):
         from dataclasses import replace
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.cli.convert_weights import main as convert_main
-        from whisper_ipa_tpu.models import init_params, save_safetensors
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.cli.convert_weights import main as convert_main
+        from whisper_ipa.models import init_params, save_safetensors
 
         config_mod.CONFIGS.setdefault(
             "test-micro2",
@@ -157,9 +157,9 @@ class TestEvaluateModelBeam:
         from dataclasses import replace
 
         from tests.test_dataset import make_synthetic_dataset
-        from whisper_ipa_tpu.cli.evaluate_model import evaluate_model
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
+        from whisper_ipa.cli.evaluate_model import evaluate_model
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)

@@ -7,7 +7,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from whisper_ipa_tpu.data.prep import (
+from whisper_ipa.data.prep import (
     METUBET_TO_IPA,
     TIMIT_ARPABET_TO_IPA,
     analyze_dataset,
@@ -233,7 +233,7 @@ class TestIAA:
 
 class TestMappingCSVLoader:
     def test_epitran_style_csv(self, tmp_path):
-        from whisper_ipa_tpu.data.prep.g2p.engine import from_mapping_csv
+        from whisper_ipa.data.prep.g2p.engine import from_mapping_csv
 
         csv_path = tmp_path / "xyz-Latn.csv"
         csv_path.write_text("Orth,Phon\na,ɑ\nsz,s\ns,ʃ\n")
@@ -245,7 +245,7 @@ class TestMappingCSVLoader:
 
 class TestXlsxRoundTrip:
     def test_write_read(self, tmp_path):
-        from whisper_ipa_tpu.utils.xlsx import read_xlsx, write_xlsx
+        from whisper_ipa.utils.xlsx import read_xlsx, write_xlsx
 
         rows = [
             ["ID", "IPA", "Elapsed Time (sec)"],
@@ -263,7 +263,7 @@ class TestXlsxRoundTrip:
         assert back[4] == [3.0, "?", 0.0]
 
     def test_records_header_mapping(self, tmp_path):
-        from whisper_ipa_tpu.utils.xlsx import read_xlsx_records, write_xlsx
+        from whisper_ipa.utils.xlsx import read_xlsx_records, write_xlsx
 
         path = str(tmp_path / "r.xlsx")
         write_xlsx(path, [["ID", "IPA"], [7.0, "ba"]])
@@ -281,7 +281,7 @@ class TestZeroshotPipelineEndToEnd:
 
         import numpy as np
 
-        from whisper_ipa_tpu.utils.xlsx import write_xlsx
+        from whisper_ipa.utils.xlsx import write_xlsx
 
         # annotator sheets: id 41 is in BOTH poor-quality sets -> excluded
         # from usable_for_iaa; ids 1..4 usable; id 5 only one annotator
@@ -323,7 +323,7 @@ class TestZeroshotPipelineEndToEnd:
         return a_path, h_path, csv_path, wav_dir
 
     def test_full_pipeline_hand_computed_iaa(self, tmp_path):
-        from whisper_ipa_tpu.data.prep.zeroshot import (
+        from whisper_ipa.data.prep.zeroshot import (
             build_zeroshot_json,
             compute_iaa,
         )
@@ -365,7 +365,7 @@ class TestZeroshotPipelineEndToEnd:
 
 class TestKanjiG2P:
     def test_common_words_convert(self):
-        from whisper_ipa_tpu.data.prep.g2p.japanese import (
+        from whisper_ipa.data.prep.g2p.japanese import (
             kana_to_ipa,
             kanji_to_kana,
         )
@@ -378,17 +378,17 @@ class TestKanjiG2P:
         assert ipa and all(0x4E00 > ord(c) or ord(c) > 0x9FFF for c in ipa)
 
     def test_uncovered_kanji_still_raises(self):
-        from whisper_ipa_tpu.data.prep.g2p.japanese import kana_to_ipa
+        from whisper_ipa.data.prep.g2p.japanese import kana_to_ipa
 
         with pytest.raises(ValueError, match="kanji"):
             kana_to_ipa("薔薇")
 
     def test_external_dictionary_env(self, tmp_path, monkeypatch):
-        import whisper_ipa_tpu.data.prep.g2p.japanese as jm
+        import whisper_ipa.data.prep.g2p.japanese as jm
 
         d = tmp_path / "kdict.tsv"
         d.write_text("薔薇\tばら\n", encoding="utf-8")
-        monkeypatch.setenv("WHISPER_IPA_TPU_KANJI_DICT", str(d))
+        monkeypatch.setenv("WHISPER_IPA_KANJI_DICT", str(d))
         monkeypatch.setattr(jm, "_kanji_dict_loaded", False)
         assert "bäɾä" in jm.kana_to_ipa("薔薇")
         # clean up the injected entry for other tests
@@ -398,10 +398,10 @@ class TestKanjiG2P:
 
 class TestDerivedJaReadings:
     def test_ipa_to_kana_roundtrip(self):
-        from whisper_ipa_tpu.data.prep.g2p.derive_ja_readings import (
+        from whisper_ipa.data.prep.g2p.derive_ja_readings import (
             ipa_to_kana,
         )
-        from whisper_ipa_tpu.data.prep.g2p.japanese import kana_to_ipa
+        from whisper_ipa.data.prep.g2p.japanese import kana_to_ipa
 
         for ipa in ("ɡätsɯ", "ɲitɕi", "dʑɯː", "kjo̞ː", "ke̞ɴ",
                     "tɕːɯː", "çiɾä", "ɕo̞ːɡäkːo̞ː"):
@@ -412,7 +412,7 @@ class TestDerivedJaReadings:
     def test_corpus_tsv_ships_and_loads(self):
         import os
 
-        import whisper_ipa_tpu.data.prep.g2p.japanese as jm
+        import whisper_ipa.data.prep.g2p.japanese as jm
 
         tsv = os.path.join(
             os.path.dirname(os.path.abspath(jm.__file__)),
@@ -434,7 +434,7 @@ class TestDerivedJaReadings:
                 break
 
     def test_sokuon_compound_sandhi(self):
-        from whisper_ipa_tpu.data.prep.g2p.japanese import kanji_to_kana
+        from whisper_ipa.data.prep.g2p.japanese import kanji_to_kana
 
         # がく + こう -> がっこう via the composition rule (the word
         # itself is a built-in; use a synthetic compound instead)

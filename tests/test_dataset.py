@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from whisper_ipa_tpu.audio import SAMPLE_RATE, write_wav
-from whisper_ipa_tpu.data import IPADataset, PrefetchLoader, create_data_loader
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa.audio import SAMPLE_RATE, write_wav
+from whisper_ipa.data import IPADataset, PrefetchLoader, create_data_loader
+from whisper_ipa.tokenizer import get_tokenizer
 
 
 def make_synthetic_dataset(root, n=6, seconds=0.5):
@@ -107,8 +107,8 @@ class TestEndToEndTraining:
         """Two real steps of train() end-to-end on synthetic data."""
         from dataclasses import replace
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.train.loop import train
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.train.loop import train
 
         # register a micro model to keep CPU compile time down
         config_mod.CONFIGS["test-micro"] = replace(
@@ -149,8 +149,8 @@ class TestFailureHandling:
         (reference broke with no save — SURVEY §5 failure detection)."""
         from dataclasses import replace
 
-        import whisper_ipa_tpu.config as config_mod
-        import whisper_ipa_tpu.train.loop as loop_mod
+        import whisper_ipa.config as config_mod
+        import whisper_ipa.train.loop as loop_mod
 
         config_mod.CONFIGS["test-micro3"] = replace(
             config_mod.CONFIGS["test-tiny"], name="test-micro3"
@@ -244,9 +244,9 @@ class TestScheduleLogging:
         import csv as _csv
         from dataclasses import replace
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.train.loop import train
-        from whisper_ipa_tpu.train.optimizer import make_schedule
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.train.loop import train
+        from whisper_ipa.train.optimizer import make_schedule
 
         config_mod.CONFIGS["test-micro-lr"] = replace(
             config_mod.CONFIGS["test-tiny"], name="test-micro-lr"
@@ -293,8 +293,8 @@ class TestEmergencySaveDonation:
         (ADVICE r1: loop.py emergency checkpoint)."""
         from dataclasses import replace
 
-        import whisper_ipa_tpu.config as config_mod
-        import whisper_ipa_tpu.train.loop as loop_mod
+        import whisper_ipa.config as config_mod
+        import whisper_ipa.train.loop as loop_mod
 
         config_mod.CONFIGS["test-micro-don"] = replace(
             config_mod.CONFIGS["test-tiny"], name="test-micro-don"
@@ -330,8 +330,8 @@ class TestEncoderFeatureCache:
         on them; loss must stay finite and match the shape contract."""
         from dataclasses import replace
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.train.loop import train
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.train.loop import train
 
         config_mod.CONFIGS["test-micro-fc"] = replace(
             config_mod.CONFIGS["test-tiny"], name="test-micro-fc"
@@ -365,10 +365,10 @@ class TestEncoderFeatureCache:
 
         import jax.numpy as jnp
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.data import create_data_loader
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.train import create_train_state, train_step
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.data import create_data_loader
+        from whisper_ipa.models import init_params
+        from whisper_ipa.train import create_train_state, train_step
 
         cfg = replace(config_mod.CONFIGS["test-tiny"], name="t")
         ds = create_data_loader(dataset_json, n_mels=cfg.n_mels)
@@ -411,10 +411,10 @@ class TestStepsPerCall:
         final loss + params, checkpoints land on the same boundaries."""
         from dataclasses import replace
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.models import flatten_params
-        from whisper_ipa_tpu.train.checkpoints import load_safetensors_flat
-        from whisper_ipa_tpu.train.loop import train
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.models import flatten_params
+        from whisper_ipa.train.checkpoints import load_safetensors_flat
+        from whisper_ipa.train.loop import train
 
         config_mod.CONFIGS["test-micro"] = replace(
             config_mod.CONFIGS["test-tiny"], name="test-micro"

@@ -7,16 +7,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.decode import (
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.decode import (
     DecodingOptions,
     build_suppress_mask,
     decode,
     initial_tokens,
     sequence_score,
 )
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa.models import init_params
+from whisper_ipa.tokenizer import get_tokenizer
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
 N_MEL_FRAMES = CFG.n_audio_ctx * 2
@@ -174,9 +174,9 @@ class TestBeamDecode:
                 patience=1.5,
                 kv_int8=kv8,
             )
-            monkeypatch.setenv("WHISPER_IPA_TPU_LEGACY_BEAM", "1")
+            monkeypatch.setenv("WHISPER_IPA_LEGACY_BEAM", "1")
             legacy = decode(params, CFG, mel, options, tokenizer=tok)
-            monkeypatch.delenv("WHISPER_IPA_TPU_LEGACY_BEAM")
+            monkeypatch.delenv("WHISPER_IPA_LEGACY_BEAM")
             v2 = decode(params, CFG, mel, options, tokenizer=tok)
             assert [r.tokens for r in v2] == [r.tokens for r in legacy]
             for a, b in zip(v2, legacy):
@@ -187,8 +187,8 @@ class TestBeamDecode:
 
 class TestLanguageDetection:
     def test_detect_language_shapes(self, params, mel, tok):
-        from whisper_ipa_tpu.decode.decoding import detect_language
-        from whisper_ipa_tpu.models.whisper import encode
+        from whisper_ipa.decode.decoding import detect_language
+        from whisper_ipa.models.whisper import encode
 
         feats = encode(params, CFG, mel)
         codes, probs = detect_language(params, CFG, feats, tok)
@@ -236,7 +236,7 @@ class TestTimestampDecoding:
 class TestTranscribe:
     def test_chunked_batched(self, params, tok):
         """transcribe() on >30 s audio decodes all windows as one batch."""
-        from whisper_ipa_tpu.decode import chunk_audio, transcribe
+        from whisper_ipa.decode import chunk_audio, transcribe
 
         audio = np.zeros(int(16000 * 35), np.float32)  # 2 windows
         assert len(chunk_audio(audio)) == 2
@@ -245,7 +245,7 @@ class TestTranscribe:
         # exercised in the sequential test below with the tiny config)
 
     def test_sequential_conditioning(self, params, tok):
-        from whisper_ipa_tpu.decode.transcribe import _fixed_length_prompt
+        from whisper_ipa.decode.transcribe import _fixed_length_prompt
 
         prompt = _fixed_length_prompt([1, 2, 3], sot_prev=tok.sot_prev)
         assert len(prompt) == 64
@@ -253,7 +253,7 @@ class TestTranscribe:
         assert all(t == tok.sot_prev for t in prompt[:-3])
 
     def test_prompt_prefix_structure(self, tok):
-        from whisper_ipa_tpu.decode import DecodingOptions, initial_tokens
+        from whisper_ipa.decode import DecodingOptions, initial_tokens
 
         seq = initial_tokens(
             tok,
@@ -304,7 +304,7 @@ class TestTimestampSegmentParsing:
     def test_paired_segments(self, tok):
         tb = tok.timestamp_begin
         tokens = [tb + 0, 100, 101, tb + 50, tb + 50, 102, tb + 90]
-        from whisper_ipa_tpu.decode.transcribe import parse_timestamp_segments
+        from whisper_ipa.decode.transcribe import parse_timestamp_segments
 
         segments, advance = parse_timestamp_segments(tokens, tb)
         assert segments[0] == (0, 50, [100, 101])
@@ -314,7 +314,7 @@ class TestTimestampSegmentParsing:
     def test_no_consecutive_pair(self, tok):
         tb = tok.timestamp_begin
         tokens = [tb + 0, 100, tb + 40]
-        from whisper_ipa_tpu.decode.transcribe import parse_timestamp_segments
+        from whisper_ipa.decode.transcribe import parse_timestamp_segments
 
         segments, advance = parse_timestamp_segments(tokens, tb)
         assert segments == [(0, 40, [100])]
@@ -322,7 +322,7 @@ class TestTimestampSegmentParsing:
 
     def test_sequential_timestamps_mode(self, params, tok):
         """End-to-end: tiny model, 2 s of audio, timestamped windows."""
-        from whisper_ipa_tpu.decode import transcribe
+        from whisper_ipa.decode import transcribe
 
         audio = np.zeros(16000 * 2, np.float32)
         # CFG is a 32-ctx toy; use full-window contract via the real config
@@ -341,7 +341,7 @@ class TestTimestampSegmentParsing:
             n_text_layer=1,
             n_text_ctx=16,
         )
-        from whisper_ipa_tpu.models import init_params as _init
+        from whisper_ipa.models import init_params as _init
 
         mp = _init(micro, seed=0)
         out = transcribe(
@@ -393,7 +393,7 @@ class TestTimestampRulesUnit:
     def _apply(self, tok, step, prev, prev2, last_ts):
         import jax.numpy as jnp
 
-        from whisper_ipa_tpu.decode.decoding import apply_timestamp_rules
+        from whisper_ipa.decode.decoding import apply_timestamp_rules
 
         V = CFG.n_vocab
         return np.asarray(
@@ -535,7 +535,7 @@ class TestInt8CrossKV:
     optimization): small logit error, identical greedy/beam tokens."""
 
     def test_decode_step_logit_error_bounded(self, params, mel):
-        from whisper_ipa_tpu.models.whisper import (
+        from whisper_ipa.models.whisper import (
             decode_step,
             encode,
             init_cache,
@@ -596,7 +596,7 @@ class TestSequentialTimestampFallback:
 
         import importlib
 
-        tr = importlib.import_module("whisper_ipa_tpu.decode.transcribe")
+        tr = importlib.import_module("whisper_ipa.decode.transcribe")
 
         micro = _replace(CFG, n_audio_ctx=1500, n_text_ctx=64)
         # intercept decode to observe the ladder without real model quality
@@ -641,7 +641,7 @@ class TestSequentialTimestampFallback:
 
         import importlib
 
-        tr = importlib.import_module("whisper_ipa_tpu.decode.transcribe")
+        tr = importlib.import_module("whisper_ipa.decode.transcribe")
 
         micro = _replace(CFG, n_audio_ctx=1500, n_text_ctx=64)
         calls = []

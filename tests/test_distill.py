@@ -16,9 +16,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.train.loss import compute_distill_loss, compute_loss
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.models import init_params
+from whisper_ipa.train.loss import compute_distill_loss, compute_loss
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
 EOT = 50257
@@ -57,7 +57,7 @@ class TestDistillLoss:
         agreement on the training positions."""
         import optax
 
-        from whisper_ipa_tpu.models.whisper import decoder_logits, encode
+        from whisper_ipa.models.whisper import decoder_logits, encode
 
         mel, tokens = batch
         teacher = init_params(CFG, seed=1)
@@ -108,11 +108,11 @@ class TestDistillCLI:
     def test_end_to_end_micro(self, tmp_path, monkeypatch):
         """The CLI runs against a saved teacher checkpoint and writes a
         loadable student checkpoint."""
-        from whisper_ipa_tpu.audio import write_wav
-        from whisper_ipa_tpu.cli.distill_draft import main
-        from whisper_ipa_tpu.data.synth import synthesize_ipa
-        from whisper_ipa_tpu.train.checkpoints import save_checkpoint
-        from whisper_ipa_tpu.train.step import create_train_state
+        from whisper_ipa.audio import write_wav
+        from whisper_ipa.cli.distill_draft import main
+        from whisper_ipa.data.synth import synthesize_ipa
+        from whisper_ipa.train.checkpoints import save_checkpoint
+        from whisper_ipa.train.step import create_train_state
 
         # teacher checkpoint (random test-tiny weights, standard format)
         teacher_dir = tmp_path / "teacher"
@@ -150,7 +150,7 @@ class TestDistillCLI:
         # (serve --draft-checkpoint, bench) auto-pick the FULL overlay —
         # a decoder-only load would run the draft on a random encoder
         # and silently floor acceptance (r3 regression class)
-        from whisper_ipa_tpu.models.convert import checkpoint_overlay_mode
+        from whisper_ipa.models.convert import checkpoint_overlay_mode
 
         assert checkpoint_overlay_mode(
             os.path.join(out, "checkpoint-2")

@@ -14,13 +14,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.audio import log_mel_spectrogram
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.data.synth import synthesize_ipa
-from whisper_ipa_tpu.decode import DecodingOptions, decode
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.tokenizer import get_tokenizer
-from whisper_ipa_tpu.train import create_train_state, train_step
+from whisper_ipa.audio import log_mel_spectrogram
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.data.synth import synthesize_ipa
+from whisper_ipa.decode import DecodingOptions, decode
+from whisper_ipa.models import init_params
+from whisper_ipa.tokenizer import get_tokenizer
+from whisper_ipa.train import create_train_state, train_step
 
 CFG = replace(
     CONFIGS["test-tiny"],

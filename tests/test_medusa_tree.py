@@ -12,16 +12,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.decode import DecodingOptions, decode
-from whisper_ipa_tpu.decode.medusa_tree import (
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.decode import DecodingOptions, decode
+from whisper_ipa.decode.medusa_tree import (
     DEFAULT_TREE,
     _tree_tables,
     medusa_tree_decode,
 )
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.models.medusa import init_medusa_params
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa.models import init_params
+from whisper_ipa.models.medusa import init_medusa_params
+from whisper_ipa.tokenizer import get_tokenizer
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=64)
 
@@ -60,7 +60,7 @@ class TestTreeTables:
 
 class TestOptimizeTree:
     def test_picks_highest_probability_paths(self):
-        from whisper_ipa_tpu.decode.medusa_tree import optimize_tree
+        from whisper_ipa.decode.medusa_tree import optimize_tree
 
         # head 0 strong with two good candidates; head 1 weaker;
         # head 2 weak — the 5-node optimum: both depth-1 candidates,
@@ -82,7 +82,7 @@ class TestOptimizeTree:
         assert paths == {(0,), (1,), (0, 0), (1, 0), (0, 0, 0)}
 
     def test_prefix_closure(self):
-        from whisper_ipa_tpu.decode.medusa_tree import optimize_tree
+        from whisper_ipa.decode.medusa_tree import optimize_tree
 
         rng = np.random.default_rng(0)
         probs = rng.uniform(0.05, 0.9, size=(4, 3))
@@ -93,7 +93,7 @@ class TestOptimizeTree:
     def test_tree_for_heads_sidecar(self, tmp_path):
         import json
 
-        from whisper_ipa_tpu.decode.medusa_tree import tree_for_heads
+        from whisper_ipa.decode.medusa_tree import tree_for_heads
 
         weights = str(tmp_path / "heads.safetensors")
         assert tree_for_heads(weights) == DEFAULT_TREE  # no sidecar

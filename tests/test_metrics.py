@@ -8,7 +8,7 @@ diacritics, PER/PFER behavior on canonical pairs).
 import numpy as np
 import pytest
 
-from whisper_ipa_tpu.metrics import (
+from whisper_ipa.metrics import (
     NUM_FEATURES,
     edit_distance,
     evaluate_batch,
@@ -200,8 +200,8 @@ class TestNativeParity:
     """NumPy fallback and C++ core must agree."""
 
     def test_levenshtein_parity(self):
-        native = pytest.importorskip("whisper_ipa_tpu.metrics.native")
-        from whisper_ipa_tpu.metrics.per import _levenshtein_numpy
+        native = pytest.importorskip("whisper_ipa.metrics.native")
+        from whisper_ipa.metrics.per import _levenshtein_numpy
 
         rng = np.random.default_rng(0)
         for _ in range(20):
@@ -210,7 +210,7 @@ class TestNativeParity:
             assert native.levenshtein(a, b) == _levenshtein_numpy(a, b)
 
     def test_weighted_parity(self):
-        native = pytest.importorskip("whisper_ipa_tpu.metrics.native")
+        native = pytest.importorskip("whisper_ipa.metrics.native")
         rng = np.random.default_rng(1)
         for _ in range(10):
             m, n = rng.integers(1, 20, size=2)
@@ -233,7 +233,7 @@ class TestNativeParity:
 
 class TestPanphonCSVLoader:
     def test_exact_table_override(self, tmp_path):
-        import whisper_ipa_tpu.metrics.features as F
+        import whisper_ipa.metrics.features as F
 
         csv_path = tmp_path / "ipa_all.csv"
         header = "ipa," + ",".join(F.FEATURE_NAMES)
@@ -254,7 +254,7 @@ class TestPanphonCSVLoader:
 
 class TestErrorAnalysis:
     def test_alignment_ops(self):
-        from whisper_ipa_tpu.metrics.analysis import align_phones
+        from whisper_ipa.metrics.analysis import align_phones
 
         ops = align_phones(["k", "æ", "t"], ["k", "ɛ", "t"])
         assert [o[0] for o in ops] == ["match", "sub", "match"]
@@ -265,7 +265,7 @@ class TestErrorAnalysis:
         assert kinds.count("del") == 1 and kinds.count("match") == 2
 
     def test_confusion_analysis(self):
-        from whisper_ipa_tpu.metrics.analysis import confusion_analysis
+        from whisper_ipa.metrics.analysis import confusion_analysis
 
         report = confusion_analysis(
             ["kæt", "kæt", "siː"], ["kɛt", "kæt", "siːs"]
@@ -281,7 +281,7 @@ class TestCompatFolds:
     """r3: real-corpus non-IPA leaks get honest feature vectors."""
 
     def test_greek_orthography_leak_is_i(self):
-        from whisper_ipa_tpu.metrics.features import get_phone_features
+        from whisper_ipa.metrics.features import get_phone_features
 
         # Modern Greek iota/upsilon (incl. diaeresis forms) sound /i/
         i_vec = get_phone_features("i")
@@ -292,7 +292,7 @@ class TestCompatFolds:
     def test_fullwidth_latin_folds_to_ascii(self):
         import numpy as np
 
-        from whisper_ipa_tpu.metrics.features import get_phone_features
+        from whisper_ipa.metrics.features import get_phone_features
 
         assert np.array_equal(
             get_phone_features("ｌ"), get_phone_features("l")
@@ -304,14 +304,14 @@ class TestCompatFolds:
     def test_tamil_aytam_is_x(self):
         import numpy as np
 
-        from whisper_ipa_tpu.metrics.features import get_phone_features
+        from whisper_ipa.metrics.features import get_phone_features
 
         assert np.array_equal(
             get_phone_features("ஃ"), get_phone_features("x")
         )
 
     def test_juncture_marks_known_with_zero_features(self):
-        from whisper_ipa_tpu.metrics.features import (
+        from whisper_ipa.metrics.features import (
             get_phone_features,
             known_phone,
         )
@@ -321,6 +321,6 @@ class TestCompatFolds:
             assert (get_phone_features(mark) == 0).all()  # reference cost
 
     def test_cjk_junk_stays_unknown(self):
-        from whisper_ipa_tpu.metrics.features import known_phone
+        from whisper_ipa.metrics.features import known_phone
 
         assert not known_phone("玖")

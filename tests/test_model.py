@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS, get_config, n_mels_for_model
-from whisper_ipa_tpu.models import (
+from whisper_ipa.config import CONFIGS, get_config, n_mels_for_model
+from whisper_ipa.models import (
     decode_step,
     decoder_logits,
     encode,
@@ -21,7 +21,7 @@ from whisper_ipa_tpu.models import (
     to_mlx_flat,
     unflatten_params,
 )
-from whisper_ipa_tpu.models.whisper import count_parameters
+from whisper_ipa.models.whisper import count_parameters
 
 from dataclasses import replace
 
@@ -119,7 +119,7 @@ class TestKVCache:
         """decode_step_block with a causal mask, consecutive per-token
         positions, and a full write reduces exactly to
         decode_step_multipos (the tree-verification primitive's oracle)."""
-        from whisper_ipa_tpu.models.whisper import (
+        from whisper_ipa.models.whisper import (
             decode_step_block,
             decode_step_multipos_hidden,
         )
@@ -179,8 +179,8 @@ class TestKVCache:
         logits must be identical because the same single f32->bf16
         rounding happens either way.
         """
-        from whisper_ipa_tpu.models.whisper import cast_decoder_blocks
-        from whisper_ipa_tpu.ops.quant import quantize_tree
+        from whisper_ipa.models.whisper import cast_decoder_blocks
+        from whisper_ipa.ops.quant import quantize_tree
 
         cast = cast_decoder_blocks(params, jnp.bfloat16)
         b0 = cast["decoder"]["blocks"][0]
@@ -258,7 +258,7 @@ class TestCheckpointInterop:
     def test_safetensors_roundtrip(self, params, tmp_path):
         path = str(tmp_path / "model.safetensors")
         save_safetensors(path, params)
-        from whisper_ipa_tpu.models import load_safetensors_flat
+        from whisper_ipa.models import load_safetensors_flat
 
         flat = load_safetensors_flat(path)
         rebuilt = params_from_flat(flat, fmt="mlx")
@@ -326,7 +326,7 @@ class TestCheckpointInterop:
         import json
         import os
 
-        from whisper_ipa_tpu.models import (
+        from whisper_ipa.models import (
             checkpoint_overlay_mode,
             load_checkpoint_auto,
         )

@@ -28,7 +28,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 port, pid = sys.argv[1], int(sys.argv[2])
-from whisper_ipa_tpu.parallel.distributed import (
+from whisper_ipa.parallel.distributed import (
     global_batch_from_local, initialize, local_shard_indices, process_info,
 )
 initialize(f"localhost:{port}", num_processes=2, process_id=pid)
@@ -40,10 +40,10 @@ assert info["global_device_count"] == 4, info
 import numpy as np
 import jax.numpy as jnp
 from dataclasses import replace
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.parallel import make_mesh, shard_params
-from whisper_ipa_tpu.train import create_train_state, train_step
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.models import init_params
+from whisper_ipa.parallel import make_mesh, shard_params
+from whisper_ipa.train import create_train_state, train_step
 
 cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
 params = init_params(cfg, seed=0)
@@ -124,25 +124,25 @@ jax.config.update("jax_platforms", "cpu")
 port, pid, num_steps, out_dir, data_json = sys.argv[1:6]
 pid, num_steps = int(pid), int(num_steps)
 
-from whisper_ipa_tpu.parallel.distributed import initialize
+from whisper_ipa.parallel.distributed import initialize
 initialize(f"localhost:{port}", num_processes=2, process_id=pid)
 
 # spy on checkpoint file writes: ONLY process 0 may touch the filesystem
-import whisper_ipa_tpu.train.checkpoints as ckpt_mod
+import whisper_ipa.train.checkpoints as ckpt_mod
 writes = []
 _orig = ckpt_mod.save_safetensors
 ckpt_mod.save_safetensors = lambda path, params: (
     writes.append(path), _orig(path, params))[1]
 
 from dataclasses import replace
-import whisper_ipa_tpu.config as config_mod
+import whisper_ipa.config as config_mod
 config_mod.CONFIGS["test-micro-mh"] = replace(
     config_mod.CONFIGS["test-tiny"], name="test-micro-mh",
     n_audio_state=32, n_audio_layer=1, n_text_state=32,
     n_text_layer=1, n_text_ctx=48,
 )
 
-from whisper_ipa_tpu.train.loop import train
+from whisper_ipa.train.loop import train
 summary = train(
     model_name="test-micro-mh",
     train_data_path=data_json,
@@ -159,7 +159,7 @@ summary = train(
     # params device_put from host-local arrays to a cross-host 'data'
     # sharding; the checkpoint save MUST go through the collective
     # fetch (params not fully addressable on either host)
-    fsdp=os.environ.get("WHISPER_IPA_TPU_TEST_FSDP") == "1",
+    fsdp=os.environ.get("WHISPER_IPA_TEST_FSDP") == "1",
 )
 
 if pid != 0:
@@ -254,7 +254,7 @@ def test_two_process_fsdp_train_checkpoint_resume(tmp_path):
 
     data_json = make_synthetic_dataset(str(tmp_path / "ds"))
     out_dir = str(tmp_path / "run_fsdp")
-    fsdp_env = {"WHISPER_IPA_TPU_TEST_FSDP": "1"}
+    fsdp_env = {"WHISPER_IPA_TEST_FSDP": "1"}
 
     outs1, losses1 = _run_loop_workers(
         tmp_path, 8, out_dir, data_json, extra_env=fsdp_env
@@ -281,15 +281,15 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 port, pid = sys.argv[1], int(sys.argv[2])
-from whisper_ipa_tpu.parallel.distributed import initialize
+from whisper_ipa.parallel.distributed import initialize
 initialize(f"localhost:{port}", num_processes=2, process_id=pid)
 
 import numpy as np
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
-from whisper_ipa_tpu.parallel import make_mesh
-from whisper_ipa_tpu.parallel.distributed import global_batch_from_local
-from whisper_ipa_tpu.train.checkpoints import fetch_tree_to_host
+from whisper_ipa.parallel import make_mesh
+from whisper_ipa.parallel.distributed import global_batch_from_local
+from whisper_ipa.train.checkpoints import fetch_tree_to_host
 
 mesh = make_mesh(model=1)  # (data=4, model=1) over 2 hosts x 2 devices
 full = np.arange(4 * 8, dtype=np.float32).reshape(4, 8)

@@ -11,7 +11,7 @@ be *verified* offline. What these tests do provide:
    segments + TIMIT/English extras). It pins the implementation: any change
    to metrics/features.py that shifts a vector fails here. When the real
    panphon ipa_all.csv becomes available, dropping it over this file (or via
-   WHISPER_IPA_TPU_PANPHON_CSV) turns the same test into a true
+   WHISPER_IPA_PANPHON_CSV) turns the same test into a true
    ground-truth parity check.
 2. Independent hand-written spot goldens for segments whose panphon vectors
    are documented (the PanPhon paper's example vectors and core Hayes
@@ -30,12 +30,12 @@ import os
 import numpy as np
 import pytest
 
-from whisper_ipa_tpu.metrics.features import (
+from whisper_ipa.metrics.features import (
     FEATURE_NAMES,
     NUM_FEATURES,
     get_phone_features,
 )
-from whisper_ipa_tpu.metrics.pfer import phone_feature_error_rate
+from whisper_ipa.metrics.pfer import phone_feature_error_rate
 
 FIXTURE = os.path.join(
     os.path.dirname(__file__), "fixtures", "panphon_golden.csv"
@@ -159,7 +159,7 @@ class TestReferenceDataAnchors:
         fullwidth noise excepted — the reference zero-fallback covers it)."""
         from collections import Counter
 
-        from whisper_ipa_tpu.metrics.segment import tokenize_ipa
+        from whisper_ipa.metrics.segment import tokenize_ipa
 
         segs = Counter()
         for t in texts:

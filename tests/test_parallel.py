@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.parallel import (
+from whisper_ipa.parallel import (
     batch_sharding,
     global_batch_from_local,
     local_shard_indices,
@@ -51,8 +51,8 @@ class TestMesh:
     def test_shard_params_tp(self):
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=16, n_text_ctx=16)
         params = init_params(cfg, seed=0)
@@ -87,10 +87,10 @@ class TestTensorParallelInference:
 
         import jax.numpy as jnp
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.decode import DecodingOptions, decode
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.decode import DecodingOptions, decode
+        from whisper_ipa.models import init_params
+        from whisper_ipa.tokenizer import get_tokenizer
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)
@@ -129,10 +129,10 @@ class TestTensorParallelInference:
         run exactly — the new einsums have no other multi-chip oracle."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.decode import DecodingOptions, decode
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.decode import DecodingOptions, decode
+        from whisper_ipa.models import init_params
+        from whisper_ipa.tokenizer import get_tokenizer
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)
@@ -159,10 +159,10 @@ class TestTensorParallelInference:
         for dp=1 x tp=2 and dp=2 x tp=2."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.parallel import shard_batch
-        from whisper_ipa_tpu.train import create_train_state, train_step
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
+        from whisper_ipa.parallel import shard_batch
+        from whisper_ipa.train import create_train_state, train_step
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         eot = 50257
@@ -179,7 +179,7 @@ class TestTensorParallelInference:
             # fresh params per run: train_step donates its input state
             params = init_params(cfg, seed=0)
             if mesh is not None:
-                from whisper_ipa_tpu.parallel import shard_params
+                from whisper_ipa.parallel import shard_params
 
                 params = shard_params(mesh, params, tensor_parallel=True)
             state, tx = create_train_state(
@@ -214,7 +214,7 @@ class TestTensorParallelInference:
             )
 
     def test_zero1_spec_rules(self):
-        from whisper_ipa_tpu.parallel.mesh import zero1_spec
+        from whisper_ipa.parallel.mesh import zero1_spec
 
         # largest divisible axis gets 'data'
         assert zero1_spec((384, 1536), 8) == P(None, "data")
@@ -234,10 +234,10 @@ class TestTensorParallelInference:
         params to the plain replicated-state step."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.parallel import shard_batch
-        from whisper_ipa_tpu.train import (
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
+        from whisper_ipa.parallel import shard_batch
+        from whisper_ipa.train import (
             create_train_state,
             create_train_state_zero1,
             make_zero1_step,
@@ -340,10 +340,10 @@ class TestTensorParallelInference:
         matches the unsharded step."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.parallel import shard_batch
-        from whisper_ipa_tpu.train import (
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
+        from whisper_ipa.parallel import shard_batch
+        from whisper_ipa.train import (
             create_train_state,
             create_train_state_zero1,
             make_zero1_step,
@@ -399,7 +399,7 @@ class TestTensorParallelInference:
             "data" in spec and "model" in spec for spec in mu_specs
         ), f"no dp+tp composed moment found: {mu_specs[:8]}"
 
-        from whisper_ipa_tpu.parallel import param_shardings as tp_shardings
+        from whisper_ipa.parallel import param_shardings as tp_shardings
 
         step_fn = make_zero1_step(
             mesh,
@@ -427,10 +427,10 @@ class TestTensorParallelInference:
 
         import jax.numpy as jnp
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.decode import DecodingOptions, decode
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.decode import DecodingOptions, decode
+        from whisper_ipa.models import init_params
+        from whisper_ipa.tokenizer import get_tokenizer
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)
@@ -459,10 +459,10 @@ class TestZero1OptimizerVariants:
         moments — and the step must still match the replicated run."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.parallel import shard_batch
-        from whisper_ipa_tpu.train import (
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
+        from whisper_ipa.parallel import shard_batch
+        from whisper_ipa.train import (
             create_train_state,
             create_train_state_zero1,
             make_zero1_step,
@@ -538,10 +538,10 @@ class TestFSDP:
         free axis; indivisible tensors stay replicated."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.models.convert import flatten_params
-        from whisper_ipa_tpu.parallel import fsdp_param_shardings
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
+        from whisper_ipa.models.convert import flatten_params
+        from whisper_ipa.parallel import fsdp_param_shardings
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)
@@ -582,10 +582,10 @@ class TestFSDP:
         GSPMD derives must be numerically invisible."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.parallel import fsdp_param_shardings, shard_batch
-        from whisper_ipa_tpu.train import (
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
+        from whisper_ipa.parallel import fsdp_param_shardings, shard_batch
+        from whisper_ipa.train import (
             create_train_state,
             create_train_state_zero1,
             make_zero1_step,
@@ -677,10 +677,10 @@ class TestFSDP:
         the loss still matches the unsharded step."""
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.parallel import fsdp_param_shardings, shard_batch
-        from whisper_ipa_tpu.train import (
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
+        from whisper_ipa.parallel import fsdp_param_shardings, shard_batch
+        from whisper_ipa.train import (
             create_train_state,
             create_train_state_zero1,
             make_zero1_step,
@@ -744,10 +744,10 @@ class TestDataParallelEvaluation:
 
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.data import create_data_loader
-        from whisper_ipa_tpu.models import init_params
-        from whisper_ipa_tpu.train.loop import validate
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.data import create_data_loader
+        from whisper_ipa.models import init_params
+        from whisper_ipa.train.loop import validate
 
         sys.path.insert(0, os.path.dirname(__file__))
         from test_dataset import make_synthetic_dataset

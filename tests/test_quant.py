@@ -7,17 +7,17 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.decode import DecodingOptions, decode
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.models.layers import linear
-from whisper_ipa_tpu.models.whisper import decoder_logits, encode
-from whisper_ipa_tpu.ops.quant import (
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.decode import DecodingOptions, decode
+from whisper_ipa.models import init_params
+from whisper_ipa.models.layers import linear
+from whisper_ipa.models.whisper import decoder_logits, encode
+from whisper_ipa.ops.quant import (
     quantize_linear,
     quantize_params,
     quantized_bytes,
 )
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa.tokenizer import get_tokenizer
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
 
@@ -106,8 +106,8 @@ class TestQuantizedModel:
 
 class TestInt4:
     def test_pack_unpack_roundtrip(self):
-        from whisper_ipa_tpu.models.layers import _unpack_int4
-        from whisper_ipa_tpu.ops.quant import pack_int4
+        from whisper_ipa.models.layers import _unpack_int4
+        from whisper_ipa.ops.quant import pack_int4
 
         rng = np.random.default_rng(0)
         q = rng.integers(-8, 8, size=(64, 48)).astype(np.int8)
@@ -118,7 +118,7 @@ class TestInt4:
         np.testing.assert_array_equal(w, q.astype(np.float32))
 
     def test_roundtrip_error_bounded(self):
-        from whisper_ipa_tpu.ops.quant import quantize_linear_int4
+        from whisper_ipa.ops.quant import quantize_linear_int4
 
         rng = np.random.default_rng(1)
         w = rng.standard_normal((128, 96)).astype(np.float32)
@@ -126,7 +126,7 @@ class TestInt4:
         q = quantize_linear_int4(p, group=64)
         assert q["w_q4"].shape == (64, 96)
         assert q["w_s4"].shape == (2, 96)
-        from whisper_ipa_tpu.models.layers import _unpack_int4
+        from whisper_ipa.models.layers import _unpack_int4
 
         deq = np.asarray(
             _unpack_int4(q["w_q4"], q["w_s4"], jnp.float32)
@@ -137,8 +137,8 @@ class TestInt4:
         assert (err <= bound * 0.5 + 1e-6).all()
 
     def test_linear_apply_close(self):
-        from whisper_ipa_tpu.models.layers import linear
-        from whisper_ipa_tpu.ops.quant import quantize_linear_int4
+        from whisper_ipa.models.layers import linear
+        from whisper_ipa.ops.quant import quantize_linear_int4
 
         rng = np.random.default_rng(2)
         w = rng.standard_normal((128, 64)).astype(np.float32)
@@ -151,8 +151,8 @@ class TestInt4:
         assert rel < 0.12  # 4-bit: ~5x coarser than int8
 
     def test_stochastic_rounding_unbiased(self):
-        from whisper_ipa_tpu.models.layers import _unpack_int4
-        from whisper_ipa_tpu.ops.quant import quantize_linear_int4
+        from whisper_ipa.models.layers import _unpack_int4
+        from whisper_ipa.ops.quant import quantize_linear_int4
 
         # constant 0.25-of-a-step offsets: nearest rounding is biased by
         # exactly -0.25 steps, stochastic rounding's bias -> 0
@@ -185,7 +185,7 @@ class TestInt4:
         assert abs(mean_rn - 2.25) > 0.2  # nearest rounds all to 2.0
 
     def test_int4_model_decode_runs(self):
-        from whisper_ipa_tpu.ops.quant import quantize_params, quantized_bytes
+        from whisper_ipa.ops.quant import quantize_params, quantized_bytes
 
         params = init_params(CFG, seed=0)
         q4 = quantize_params(params, bits=4, group=64)
@@ -215,7 +215,7 @@ class TestInt4:
 
 class TestStochasticQuantDevice:
     def test_fallback_roundtrip_and_unbiased(self):
-        from whisper_ipa_tpu.ops.sr_quant import stochastic_quantize_int8
+        from whisper_ipa.ops.sr_quant import stochastic_quantize_int8
 
         rng = np.random.default_rng(0)
         w = rng.standard_normal((256, 64)).astype(np.float32)
@@ -233,7 +233,7 @@ class TestStochasticQuantDevice:
         assert abs(deq2.mean() - 0.25) < 0.02
 
     def test_quantize_params_device_layout(self):
-        from whisper_ipa_tpu.ops.sr_quant import quantize_params_device
+        from whisper_ipa.ops.sr_quant import quantize_params_device
 
         params = init_params(CFG, seed=0)
         qp = quantize_params_device(params)
@@ -267,8 +267,8 @@ class TestInt4CrossKV:
 
         import jax.numpy as jnp
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)
@@ -284,11 +284,11 @@ class TestInt4CrossKV:
         """One cross-attention through the packed path vs the fp path."""
         import jax.numpy as jnp
 
-        from whisper_ipa_tpu.models.layers import (
+        from whisper_ipa.models.layers import (
             multi_head_attention,
             multi_head_attention_int8kv,
         )
-        from whisper_ipa_tpu.models.whisper import init_cache
+        from whisper_ipa.models.whisper import init_cache
 
         cfg, params, feats = self._setup()
         cache4 = init_cache(params, cfg, feats, max_len=8,
@@ -321,8 +321,8 @@ class TestInt4CrossKV:
         first step sees the most uniform logits)."""
         import jax.numpy as jnp
 
-        from whisper_ipa_tpu.decode import DecodingOptions, decode
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
+        from whisper_ipa.decode import DecodingOptions, decode
+        from whisper_ipa.tokenizer import get_tokenizer
 
         cfg, params, _ = self._setup()
         tok = get_tokenizer(multilingual=True, language="en")

@@ -38,7 +38,7 @@ def test_schema(entries):
 
 
 def test_tokenizer_roundtrips_all_real_ipa(entries):
-    from whisper_ipa_tpu.tokenizer import get_tokenizer
+    from whisper_ipa.tokenizer import get_tokenizer
 
     tok = get_tokenizer(multilingual=True, language="en")
     bad = []
@@ -54,7 +54,7 @@ def test_tokenizer_roundtrips_all_real_ipa(entries):
 
 def test_training_sequences_fit_context(entries):
     """Every real transcription must fit Whisper's 448-token decoder."""
-    from whisper_ipa_tpu.tokenizer import get_tokenizer
+    from whisper_ipa.tokenizer import get_tokenizer
 
     tok = get_tokenizer(multilingual=True, language="en")
     too_long = [
@@ -66,7 +66,7 @@ def test_training_sequences_fit_context(entries):
 
 
 def test_metrics_identity_on_real_data(entries):
-    from whisper_ipa_tpu.metrics import (
+    from whisper_ipa.metrics import (
         normalize_ipa_for_comparison,
         phone_error_rate,
         phone_feature_error_rate,
@@ -83,7 +83,7 @@ def test_segmentation_covers_real_phones(entries):
     appearing in the real corpus (unknowns fall back to zero vectors)."""
     from collections import Counter
 
-    from whisper_ipa_tpu.metrics import known_phone, tokenize_ipa
+    from whisper_ipa.metrics import known_phone, tokenize_ipa
 
     counts = Counter()
     unknown = Counter()
@@ -110,7 +110,7 @@ def test_segmentation_coverage_all_versions():
     import glob
     from collections import Counter
 
-    from whisper_ipa_tpu.metrics import known_phone, tokenize_ipa
+    from whisper_ipa.metrics import known_phone, tokenize_ipa
 
     checked = 0
     for fp in sorted(glob.glob(os.path.join(REFERENCE_DATA, "*", "*.json"))):
@@ -142,12 +142,12 @@ def test_segmentation_coverage_all_versions():
 def test_prep_table_phones_all_known():
     """Every IPA phone the corpus-prep tables can emit (TIMIT/OGI
     ARPABET, METUbet) must have a real feature vector."""
-    from whisper_ipa_tpu.data.prep.phonesets import (
+    from whisper_ipa.data.prep.phonesets import (
         METUBET_TO_IPA,
         OGI_ARPABET_TO_IPA,
         TIMIT_ARPABET_TO_IPA,
     )
-    from whisper_ipa_tpu.metrics import known_phone, tokenize_ipa
+    from whisper_ipa.metrics import known_phone, tokenize_ipa
 
     for table in (TIMIT_ARPABET_TO_IPA, METUBET_TO_IPA, OGI_ARPABET_TO_IPA):
         for ipa in table.values():
@@ -166,8 +166,8 @@ def test_g2p_agreement_v3(lang, max_per):
     Measured averages (40 sentences/lang): fi 0.0%, hu 0.4%, mt 2.1%,
     ta 3.2%, el 1.3%, pl 5.3% phone error vs the upstream converters.
     """
-    from whisper_ipa_tpu.data.prep.g2p import text_to_ipa
-    from whisper_ipa_tpu.metrics import phone_error_rate
+    from whisper_ipa.data.prep.g2p import text_to_ipa
+    from whisper_ipa.metrics import phone_error_rate
 
     path = os.path.join(
         REFERENCE_DATA, "v3_improved", "combined_test_ipa.json"

@@ -7,9 +7,9 @@ from dataclasses import replace
 import numpy as np
 import pytest
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.serve import TranscriptionService
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.models import init_params
+from whisper_ipa.serve import TranscriptionService
 
 # full-size audio window contract, tiny transformer dims
 CFG = replace(
@@ -74,7 +74,7 @@ class TestHTTPServer:
         import wave
         from http.server import ThreadingHTTPServer
 
-        from whisper_ipa_tpu.cli.serve import make_handler
+        from whisper_ipa.cli.serve import make_handler
 
         server = ThreadingHTTPServer(
             ("127.0.0.1", 0), make_handler(service)
@@ -148,7 +148,7 @@ class TestStreamingPartials:
         import wave
         from http.server import ThreadingHTTPServer
 
-        from whisper_ipa_tpu.cli.serve import make_handler
+        from whisper_ipa.cli.serve import make_handler
 
         server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
         port = server.server_address[1]
@@ -249,7 +249,7 @@ class TestSpeculativeService:
         assert out["text"] == ref["text"]
 
     def test_medusa_tree_service_matches_plain(self):
-        from whisper_ipa_tpu.models.medusa import init_medusa_params
+        from whisper_ipa.models.medusa import init_medusa_params
 
         params = init_params(CFG, seed=0)
         heads = init_medusa_params(CFG, n_heads=2, seed=3)
@@ -287,7 +287,7 @@ class TestShardedService:
     """Multi-chip serving over the virtual 8-device mesh (GSPMD)."""
 
     def test_dp_tp_service_matches_single_device(self):
-        from whisper_ipa_tpu.parallel.mesh import make_mesh
+        from whisper_ipa.parallel.mesh import make_mesh
 
         params = init_params(CFG, seed=0)
         audio = (
@@ -321,7 +321,7 @@ class TestShardedService:
         ]
 
     def test_batch_must_divide_data_axis(self):
-        from whisper_ipa_tpu.parallel.mesh import make_mesh
+        from whisper_ipa.parallel.mesh import make_mesh
 
         params = init_params(CFG, seed=0)
         mesh = make_mesh(data=4, model=2)
@@ -331,7 +331,7 @@ class TestShardedService:
             )
 
     def test_tp_excludes_quantization(self):
-        from whisper_ipa_tpu.parallel.mesh import make_mesh
+        from whisper_ipa.parallel.mesh import make_mesh
 
         params = init_params(CFG, seed=0)
         mesh = make_mesh(data=2, model=2)
@@ -346,7 +346,7 @@ class TestShardedQuantizedService:
     def test_dp_service_with_int8_weights(self):
         """Data-parallel serving composes with weight-only quantization
         (params replicated over the mesh, batches sharded)."""
-        from whisper_ipa_tpu.parallel.mesh import make_mesh
+        from whisper_ipa.parallel.mesh import make_mesh
 
         params = init_params(CFG, seed=0)
         audio = (

@@ -14,11 +14,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.decode import DecodingOptions, decode
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.serve_continuous import ContinuousBatcher
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.decode import DecodingOptions, decode
+from whisper_ipa.models import init_params
+from whisper_ipa.serve_continuous import ContinuousBatcher
+from whisper_ipa.tokenizer import get_tokenizer
 
 # full 30 s audio window contract, tiny transformer dims (fast CPU compile)
 CFG = replace(
@@ -61,7 +61,7 @@ def engine(params, tok):
 
 def reference_tokens(params, audio, tok):
     """Standalone greedy decode of the same 30 s window."""
-    from whisper_ipa_tpu.audio import log_mel_spectrogram, pad_or_trim
+    from whisper_ipa.audio import log_mel_spectrogram, pad_or_trim
 
     mel = log_mel_spectrogram(
         pad_or_trim(np.asarray(audio, np.float32)), n_mels=CFG.n_mels
@@ -193,7 +193,7 @@ def test_http_server_over_continuous_engine(engine):
     import wave
     from http.server import ThreadingHTTPServer
 
-    from whisper_ipa_tpu.cli.serve import make_handler
+    from whisper_ipa.cli.serve import make_handler
 
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
     port = server.server_address[1]
@@ -243,7 +243,7 @@ def test_http_server_over_continuous_engine(engine):
 def test_long_audio_chains_windows(engine, params, tok):
     """Audio longer than 30 s decodes window-by-window in the engine,
     matching per-window standalone greedy decodes."""
-    from whisper_ipa_tpu.audio import N_SAMPLES
+    from whisper_ipa.audio import N_SAMPLES
 
     rng = np.random.default_rng(5)
     audio = rng.standard_normal(N_SAMPLES + 16000).astype(np.float32) * 0.1
@@ -303,7 +303,7 @@ def test_speculative_engine_join_and_streaming(spec_engine, params, tok):
 
 def test_speculative_engine_long_audio(spec_engine, params, tok):
     """Window chaining works under in-flight speculation too."""
-    from whisper_ipa_tpu.audio import N_SAMPLES
+    from whisper_ipa.audio import N_SAMPLES
 
     rng = np.random.default_rng(8)
     audio = rng.standard_normal(N_SAMPLES + 16000).astype(np.float32) * 0.1
@@ -374,7 +374,7 @@ def test_medusa_engine_matches_plain_greedy(params, tok):
     residual -> near-base-head proposals) must still yield
     token-identical output to standalone greedy, including a mid-flight
     join whose frontier hidden is refreshed by _join_step_hidden."""
-    from whisper_ipa_tpu.models.medusa import init_medusa_params
+    from whisper_ipa.models.medusa import init_medusa_params
 
     medusa_params = init_medusa_params(CFG, n_heads=3, seed=1)
     eng = ContinuousBatcher(
@@ -403,8 +403,8 @@ def test_medusa_tree_engine_matches_plain_greedy(params, tok):
     """In-flight TREE-medusa: per-round re-feed + tree verification per
     slot. Output must be token-identical to standalone greedy, including
     a mid-flight join."""
-    from whisper_ipa_tpu.decode.medusa_tree import DEFAULT_TREE
-    from whisper_ipa_tpu.models.medusa import init_medusa_params
+    from whisper_ipa.decode.medusa_tree import DEFAULT_TREE
+    from whisper_ipa.models.medusa import init_medusa_params
 
     # DEFAULT_TREE depth 4 > n_prefix-2: exercises the widened tree-mode
     # join (_join_step_tree, W = K+2 = 6 > n_prefix = 4)
@@ -432,7 +432,7 @@ def test_medusa_tree_engine_matches_plain_greedy(params, tok):
 
 
 def test_medusa_excludes_draft_model(params, tok):
-    from whisper_ipa_tpu.models.medusa import init_medusa_params
+    from whisper_ipa.models.medusa import init_medusa_params
 
     with pytest.raises(ValueError):
         ContinuousBatcher(
@@ -468,7 +468,7 @@ def test_int8_kv_engine_matches_plain_greedy(params, tok):
 def test_engine_fuzz_mixed_arrivals(engine, params, tok):
     """Soak: mixed-length audio under random arrival jitter — every
     request must match its standalone per-window greedy decode."""
-    from whisper_ipa_tpu.audio import N_SAMPLES
+    from whisper_ipa.audio import N_SAMPLES
 
     rng = np.random.default_rng(14)
     audios = []
@@ -514,7 +514,7 @@ def test_dp_sharded_engine_matches_plain_greedy(params, tok):
     (multi-chip serving): same tokens as the standalone greedy decode,
     and the persistent state STAYS sharded across joins/chunks/retires
     (no silent re-replication of the KV cache)."""
-    from whisper_ipa_tpu.parallel import make_mesh
+    from whisper_ipa.parallel import make_mesh
 
     mesh = make_mesh()  # 8 virtual devices
     eng = ContinuousBatcher(
@@ -549,7 +549,7 @@ def test_dp_sharded_engine_matches_plain_greedy(params, tok):
 
 
 def test_dp_engine_rejects_indivisible_slots(params, tok):
-    from whisper_ipa_tpu.parallel import make_mesh
+    from whisper_ipa.parallel import make_mesh
 
     with pytest.raises(ValueError, match="divide"):
         ContinuousBatcher(
@@ -561,7 +561,7 @@ def test_dp_engine_rejects_indivisible_slots(params, tok):
 def test_max_pending_backpressure(engine):
     """submit() rejects with EngineOverloaded at the queue bound and the
     HTTP layer maps it to 503 (production load shedding)."""
-    from whisper_ipa_tpu.serve_continuous import EngineOverloaded
+    from whisper_ipa.serve_continuous import EngineOverloaded
 
     audio = np.zeros(8000, np.float32)
     engine.max_pending = 0  # every submit sees a "full" queue
@@ -637,7 +637,7 @@ def test_queued_deadline_resolves_while_slots_full(engine, params, tok):
     is busy (the _reap queue sweep — without it the client would wait
     for a slot to free, the unbounded latency deadlines must prevent).
     Long-audio requests keep both slots occupied across windows."""
-    from whisper_ipa_tpu.audio import N_SAMPLES
+    from whisper_ipa.audio import N_SAMPLES
 
     rng = np.random.default_rng(23)
     n = N_SAMPLES + 16000  # 31 s -> 2 windows per request
@@ -659,7 +659,7 @@ def test_tp_sharded_engine_matches_plain_greedy(params, tok):
     output stays token-identical — serving models too big for one chip."""
     import jax
 
-    from whisper_ipa_tpu.parallel import make_mesh
+    from whisper_ipa.parallel import make_mesh
 
     mesh = make_mesh(model=2, devices=jax.devices()[:2])  # data=1 x tp=2
     eng = ContinuousBatcher(
@@ -693,7 +693,7 @@ def test_tp_sharded_engine_matches_plain_greedy(params, tok):
 
 def test_dp_tp_sharded_engine_matches_plain_greedy(params, tok):
     """dp x tp engine: slot axis over 'data', weights over 'model'."""
-    from whisper_ipa_tpu.parallel import make_mesh
+    from whisper_ipa.parallel import make_mesh
 
     mesh = make_mesh(model=2)  # data=4 x model=2 on the virtual 8
     eng = ContinuousBatcher(

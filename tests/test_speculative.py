@@ -14,11 +14,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.decode import DecodingOptions, decode
-from whisper_ipa_tpu.decode.speculative import speculative_decode
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.decode import DecodingOptions, decode
+from whisper_ipa.decode.speculative import speculative_decode
+from whisper_ipa.models import init_params
+from whisper_ipa.tokenizer import get_tokenizer
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
 N_MEL_FRAMES = CFG.n_audio_ctx * 2
@@ -136,7 +136,7 @@ class TestMultiposStep:
         """decode_step_multipos with equal positions == decode_step."""
         import jax
 
-        from whisper_ipa_tpu.models.whisper import (
+        from whisper_ipa.models.whisper import (
             decode_step,
             decode_step_multipos,
             encode,
@@ -172,7 +172,7 @@ class TestMultiposStep:
         prefix — verified against two independent scalar-pos decodes."""
         import jax
 
-        from whisper_ipa_tpu.models.whisper import (
+        from whisper_ipa.models.whisper import (
             decode_step,
             decode_step_multipos,
             encode,
@@ -258,7 +258,7 @@ class TestNgramDraft:
         assert stats.tokens_per_round > 1.0
 
     def test_ngram_drafts_helper(self):
-        from whisper_ipa_tpu.decode.speculative import _ngram_drafts
+        from whisper_ipa.decode.speculative import _ngram_drafts
 
         buf = jnp.asarray(
             [
@@ -277,7 +277,7 @@ class TestNgramDraft:
     def test_ngram_trigram_beats_bigram(self):
         """The more specific trigram context wins over the (more recent)
         bigram match; rows without a trigram fall back to the bigram."""
-        from whisper_ipa_tpu.decode.speculative import _ngram_drafts
+        from whisper_ipa.decode.speculative import _ngram_drafts
 
         buf = jnp.asarray(
             [

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from whisper_ipa_tpu.data.synth import (
+from whisper_ipa.data.synth import (
     SAMPLE_RATE,
     pronunciation_variants,
     synthesize_ipa,
@@ -57,7 +57,7 @@ class TestSynth:
 
     def test_mel_pipeline_integration(self):
         """Synth audio flows through the mel frontend."""
-        from whisper_ipa_tpu.audio import log_mel_spectrogram, pad_or_trim
+        from whisper_ipa.audio import log_mel_spectrogram, pad_or_trim
 
         audio = pad_or_trim(synthesize_ipa("kæt siː ʃuː"))
         mel = log_mel_spectrogram(audio)

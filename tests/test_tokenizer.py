@@ -8,7 +8,7 @@ WHISPER_IPA_RESEARCH_STANDALONE.md:313-350): multilingual vocab 51865,
 
 import pytest
 
-from whisper_ipa_tpu.tokenizer import WhisperTokenizer, get_tokenizer
+from whisper_ipa.tokenizer import WhisperTokenizer, get_tokenizer
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +127,7 @@ class TestRankFileLoader:
                 f.write(base64.b64encode(token) + b" " + str(rank).encode() + b"\n")
 
     def test_load_and_merge(self, tmp_path):
-        from whisper_ipa_tpu.tokenizer import BPE, load_tiktoken_ranks
+        from whisper_ipa.tokenizer import BPE, load_tiktoken_ranks
 
         path = str(tmp_path / "ranks.tiktoken")
         self.make_ranks_file(path)
@@ -140,8 +140,8 @@ class TestRankFileLoader:
         assert bpe.decode([257, ord("d")]) == "abcd"
 
     def test_get_tokenizer_with_ranks_env(self, tmp_path, monkeypatch):
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
-        from whisper_ipa_tpu.tokenizer.whisper_tokenizer import RANKS_ENV_VAR
+        from whisper_ipa.tokenizer import get_tokenizer
+        from whisper_ipa.tokenizer.whisper_tokenizer import RANKS_ENV_VAR
 
         path = str(tmp_path / "ranks.tiktoken")
         self.make_ranks_file(path)
@@ -272,7 +272,7 @@ class TestVocabProvenanceGuard:
     def _make_checkpoint(self, tmp_path, params, provenance):
         import json
 
-        from whisper_ipa_tpu.train.checkpoints import save_safetensors
+        from whisper_ipa.train.checkpoints import save_safetensors
 
         d = tmp_path / "checkpoint-1"
         d.mkdir()
@@ -287,11 +287,11 @@ class TestVocabProvenanceGuard:
 
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params, load_checkpoint_model
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params, load_checkpoint_model
+        from whisper_ipa.tokenizer import get_tokenizer
 
-        monkeypatch.delenv("WHISPER_IPA_TPU_ALLOW_VOCAB_MISMATCH",
+        monkeypatch.delenv("WHISPER_IPA_ALLOW_VOCAB_MISMATCH",
                            raising=False)
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)
@@ -304,9 +304,9 @@ class TestVocabProvenanceGuard:
     def test_match_and_unstamped_load(self, tmp_path):
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import init_params, load_checkpoint_model
-        from whisper_ipa_tpu.tokenizer import get_tokenizer
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import init_params, load_checkpoint_model
+        from whisper_ipa.tokenizer import get_tokenizer
 
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)
@@ -325,11 +325,11 @@ class TestVocabProvenanceGuard:
                                           capsys):
         from dataclasses import replace
 
-        from whisper_ipa_tpu.config import CONFIGS
-        from whisper_ipa_tpu.models import convert
-        from whisper_ipa_tpu.models import init_params, load_checkpoint_model
+        from whisper_ipa.config import CONFIGS
+        from whisper_ipa.models import convert
+        from whisper_ipa.models import init_params, load_checkpoint_model
 
-        monkeypatch.setenv("WHISPER_IPA_TPU_ALLOW_VOCAB_MISMATCH", "1")
+        monkeypatch.setenv("WHISPER_IPA_ALLOW_VOCAB_MISMATCH", "1")
         monkeypatch.setattr(convert, "_vocab_mismatch_warned", False)
         cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=32)
         params = init_params(cfg, seed=0)

@@ -10,10 +10,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.models import flatten_params, init_params
-from whisper_ipa_tpu.parallel import make_mesh, shard_batch
-from whisper_ipa_tpu.train import (
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.models import flatten_params, init_params
+from whisper_ipa.parallel import make_mesh, shard_batch
+from whisper_ipa.train import (
     TrainState,
     compute_loss,
     create_train_state,
@@ -190,7 +190,7 @@ class TestDataParallel:
 
 class TestScheduleAndAccumulation:
     def test_make_schedule_shapes(self):
-        from whisper_ipa_tpu.train.optimizer import make_schedule
+        from whisper_ipa.train.optimizer import make_schedule
 
         s = make_schedule(1e-4, warmup_steps=10, decay="cosine", total_steps=100)
         assert float(s(0)) == 0.0
@@ -214,7 +214,7 @@ class TestScheduleAndAccumulation:
 
 class TestOrbaxBackend:
     def test_orbax_roundtrip(self, params, batch, tmp_path):
-        from whisper_ipa_tpu.train.checkpoints import (
+        from whisper_ipa.train.checkpoints import (
             restore_checkpoint_orbax,
             save_checkpoint_orbax,
         )
@@ -251,12 +251,12 @@ class TestMemoryOptions:
         assert np.isfinite(float(loss))
 
     def test_encoder_bf16_cast(self, params):
-        from whisper_ipa_tpu.models.convert import cast_tree_dtype
+        from whisper_ipa.models.convert import cast_tree_dtype
 
         enc = cast_tree_dtype(params["encoder"], jnp.bfloat16)
         assert enc["conv1"]["w"].dtype == jnp.bfloat16
         # forward still works with bf16 encoder params
-        from whisper_ipa_tpu.models.whisper import encode
+        from whisper_ipa.models.whisper import encode
 
         rng = np.random.default_rng(0)
         mel = jnp.asarray(
@@ -289,7 +289,7 @@ class TestTrainChunk:
         return out
 
     def test_matches_sequential_steps(self, batch):
-        from whisper_ipa_tpu.train import train_chunk
+        from whisper_ipa.train import train_chunk
 
         batches = self._batches(3)
         p1 = init_params(CFG, seed=0)
@@ -322,7 +322,7 @@ class TestTrainChunk:
 
     def test_trailing_eot_pad_is_loss_exact(self, batch):
         """Chunk-wide EOT right-pad must not change any step's loss."""
-        from whisper_ipa_tpu.train import train_chunk
+        from whisper_ipa.train import train_chunk
 
         batches = self._batches(2, widths=[8, 12])
         p1 = init_params(CFG, seed=0)
@@ -350,8 +350,8 @@ class TestTrainChunk:
 
     def test_sharded_chunk_matches(self, batch):
         """(C, B, ...) chunk sharded over the 8-device 'data' axis."""
-        from whisper_ipa_tpu.parallel.mesh import shard_chunk
-        from whisper_ipa_tpu.train import train_chunk
+        from whisper_ipa.parallel.mesh import shard_chunk
+        from whisper_ipa.train import train_chunk
 
         mesh = make_mesh()
         rng = np.random.default_rng(3)
@@ -414,7 +414,7 @@ class TestBF16Upload:
         import ml_dtypes
 
         mel, tokens = batch
-        from whisper_ipa_tpu.train import compute_loss
+        from whisper_ipa.train import compute_loss
 
         l_f32_upload = float(
             compute_loss(params, CFG, mel, tokens, EOT, dtype=jnp.bfloat16)
@@ -439,8 +439,8 @@ class TestZero1Loop:
         replicated-state loop run with an identical 4+4 phase schedule."""
         import sys
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.train.loop import train
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.train.loop import train
 
         sys.path.insert(0, os.path.dirname(__file__))
         from test_dataset import make_synthetic_dataset
@@ -499,8 +499,8 @@ class TestZero1Loop:
         the same losses as the plain replicated loop."""
         import sys
 
-        import whisper_ipa_tpu.config as config_mod
-        from whisper_ipa_tpu.train.loop import train
+        import whisper_ipa.config as config_mod
+        from whisper_ipa.train.loop import train
 
         sys.path.insert(0, os.path.dirname(__file__))
         from test_dataset import make_synthetic_dataset

@@ -7,15 +7,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.decode.word_timestamps import (
+from whisper_ipa.config import CONFIGS
+from whisper_ipa.decode.word_timestamps import (
     dtw_path,
     median_filter,
     phone_timestamps,
     token_alignment,
 )
-from whisper_ipa_tpu.models import init_params
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa.models import init_params
+from whisper_ipa.tokenizer import get_tokenizer
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
 
@@ -61,7 +61,7 @@ class TestPhoneTimestamps:
 
     def test_token_alignment_shapes(self, setup):
         params, tok, mel = setup
-        from whisper_ipa_tpu.models.whisper import encode
+        from whisper_ipa.models.whisper import encode
 
         feats = encode(params, CFG, mel)
         tokens = tok.encode("kæt")
@@ -92,12 +92,12 @@ def test_dtw_recovers_true_phone_boundaries():
 
     import jax.numpy as jnp
 
-    from whisper_ipa_tpu.audio import log_mel_spectrogram
-    from whisper_ipa_tpu.config import CONFIGS
-    from whisper_ipa_tpu.data.synth import synthesize_phonemes_with_alignment
-    from whisper_ipa_tpu.metrics.segment import tokenize_ipa
-    from whisper_ipa_tpu.tokenizer import get_tokenizer
-    from whisper_ipa_tpu.train import create_train_state, train_step
+    from whisper_ipa.audio import log_mel_spectrogram
+    from whisper_ipa.config import CONFIGS
+    from whisper_ipa.data.synth import synthesize_phonemes_with_alignment
+    from whisper_ipa.metrics.segment import tokenize_ipa
+    from whisper_ipa.tokenizer import get_tokenizer
+    from whisper_ipa.train import create_train_state, train_step
 
     cfg = replace(
         CONFIGS["test-tiny"],
