@@ -18,7 +18,7 @@ Needs a GPU: without one it exits non-zero and prints no result.
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "mfu",
 "device", ...}; the card's name and power limit go to stderr first.
 Usage: python bench.py [--batch N] [--sweep] [--sample-len N]
-       python bench.py --encoder-attention   (attention kernels, fwd+bwd)
+       python bench.py --encoder-attention   (attention paths, fwd+bwd)
 """
 
 import argparse
@@ -50,6 +50,7 @@ def bench_point(batch, sample_len, iters=5, kv_int8=False,
     from whisper_ipa.audio import N_SAMPLES
     from whisper_ipa.config import get_config
     from whisper_ipa.decode import DecodingOptions, decode
+    from whisper_ipa.decode.decoding import _encode_jit
     from whisper_ipa.models import init_params
     from whisper_ipa.audio.mel import log_mel_spectrogram_jax
     from whisper_ipa.tokenizer import get_tokenizer
@@ -96,6 +97,19 @@ def bench_point(batch, sample_len, iters=5, kv_int8=False,
     audio_seconds = batch * 30.0 * iters
     rtf = audio_seconds / elapsed
 
+    # each stage of run() timed alone at the same batch
+    mel = mel_fn(audio)
+    feats = _encode_jit(params, cfg, mel, dtype=jnp.bfloat16)
+    stages_ms = {
+        "log_mel": _median_ms(mel_fn, audio, iters=iters),
+        "encoder": _median_ms(
+            lambda m: _encode_jit(params, cfg, m, dtype=jnp.bfloat16), mel,
+            iters=iters),
+        "decode_loop": _median_ms(
+            lambda f: decode(params, cfg, f, options, tokenizer=tokenizer),
+            feats, iters=iters),
+    }
+
     flops = inference_flops(cfg, sample_len) * batch * iters
     achieved = flops / elapsed
     peak = peak_flops(jax.devices()[0].device_kind)
@@ -108,6 +122,7 @@ def bench_point(batch, sample_len, iters=5, kv_int8=False,
         "elapsed": elapsed,
         "compile_time": compile_time,
         "batch": batch,
+        "stages_ms": stages_ms,
         "device": jax.devices()[0].device_kind,
     }
 
@@ -472,8 +487,10 @@ def discover_trained():
     """
     import os
 
-    env_ckpt = os.environ.get("WHISPER_IPA_BENCH_CKPT")
-    env_data = os.environ.get("WHISPER_IPA_BENCH_DATA")
+    from whisper_ipa.env import setting
+
+    env_ckpt = setting("BENCH_CKPT")
+    env_data = setting("BENCH_DATA")
     candidates = []
     if env_ckpt and env_data:
         candidates.append((env_ckpt, env_data))
@@ -789,24 +806,21 @@ def _median_ms(fn, *args, iters):
 
 
 def bench_encoder_attention(batch=16, iters=20, model="small"):
-    """whisper-small encoder self-attention on the GPU, three ways.
-
-    T=1500, H=12, Dh=64, bfloat16, forward and forward+backward:
-      cudnn:  jax.nn.dot_product_attention(implementation="cudnn"), the
-              path models/layers.multi_head_attention takes on the GPU
-      einsum: the plain XLA path (materializes (B, H, T, T) logits)
-      pallas_triton: the flash-attention kernel that ships with JAX
-              (jax.experimental.pallas.ops.gpu.attention, a library
-              kernel through Pallas' Triton route); it needs T to be a
-              multiple of its 128-row blocks, so the inputs are padded to
-              1536 and the pad keys masked by segment id
-    plus the whole encoder forward with the cuDNN policy on and off.
+    """whisper-small attention on the GPU through both paths that
+    models/layers.multi_head_attention can take, bfloat16, forward and
+    forward+backward:
+      cudnn:  jax.nn.dot_product_attention(implementation="cudnn")
+      einsum: the plain XLA path (materializes (B, H, Tq, Tk) logits)
+    at the encoder's self-attention (Tq = Tk = 1500, batch `batch`) and at
+    the decoder's cross-attention shapes over the 1500 encoder positions:
+    a decode step (q = 1) and a speculative verify (q = 5) at the headline
+    batch, the teacher-forced train step (q = 47) at the train batch, and
+    q = 128, where the kernel policy starts to pick cuDNN, each at an odd
+    and an even length. Then the whole encoder forward with each path. A
+    pass cuDNN refuses is reported with its error.
     """
-    from unittest import mock
-
     import jax
     import jax.numpy as jnp
-    from jax.experimental.pallas.ops.gpu import attention as pallas_gpu
 
     from whisper_ipa.config import get_config
     from whisper_ipa.models import init_params, layers
@@ -814,65 +828,60 @@ def bench_encoder_attention(batch=16, iters=20, model="small"):
 
     cfg = get_config(model)
     H, T, d = cfg.n_audio_head, cfg.n_audio_ctx, cfg.n_audio_state
-    Dh = d // H
-    shape = (batch, T, d)
-    keys = jax.random.split(jax.random.PRNGKey(0), 4)
-    q, k, v, g = (jax.random.normal(kk, shape, jnp.bfloat16) for kk in keys)
+    shapes = [("encoder self-attention", batch, T),
+              ("decode step", HEADLINE_BATCH, 1),
+              ("speculative verify", HEADLINE_BATCH, 5),
+              ("speculative verify, even", HEADLINE_BATCH, 6),
+              ("teacher-forced train step", 12, 47),
+              ("teacher-forced train step, even", 12, 48),
+              ("policy cutoff", batch, 128),
+              ("policy cutoff, odd", batch, 129)]
+    out = {"shapes": []}
+    for name, b, tq in shapes:
+        keys = jax.random.split(jax.random.PRNGKey(0), 4)
+        q, g = (jax.random.normal(kk, (b, tq, d), jnp.bfloat16)
+                for kk in keys[:2])
+        k, v = (jax.random.normal(kk, (b, T, d), jnp.bfloat16)
+                for kk in keys[2:])
+        row = {"name": name, "batch": b, "q": tq, "k": T}
+        ref = None
+        for path in ("einsum", "cudnn"):
+            def f(q, k, v, fused=path == "cudnn"):
+                return layers.multi_head_attention(q, k, v, H, cudnn=fused)
 
-    def heads(x):
-        return x.reshape(x.shape[0], x.shape[1], H, Dh)
-
-    def cudnn(q, k, v):
-        return jax.nn.dot_product_attention(
-            heads(q), heads(k), heads(v), scale=Dh ** -0.5,
-            implementation="cudnn",
-        ).reshape(shape)
-
-    def einsum(q, k, v):
-        return layers._attention_core(
-            q, k, v, None, n_head=H, scale=Dh ** -0.25
-        )
-
-    pad = -T % 128
-    segments = jnp.concatenate(
-        [jnp.ones((batch, T), jnp.int32), jnp.zeros((batch, pad), jnp.int32)],
-        axis=1,
-    )
-
-    def pallas_triton(q, k, v):
-        def padded(x):
-            return jnp.pad(heads(x), ((0, 0), (0, pad), (0, 0), (0, 0)))
-
-        out = pallas_gpu.mha(
-            padded(q), padded(k), padded(v), segments, sm_scale=Dh ** -0.5
-        )
-        return out[:, :T].reshape(shape)
-
-    ref = jax.jit(einsum)(q, k, v).astype(jnp.float32)
-    out = {}
-    for name, f in (("cudnn", cudnn), ("einsum", einsum),
-                    ("pallas_triton", pallas_triton)):
-        fwd = jax.jit(f)
-        fwd_bwd = jax.jit(jax.grad(
-            lambda q, k, v, f=f: jnp.sum(f(q, k, v).astype(jnp.float32) * g),
-            argnums=(0, 1, 2),
-        ))
-        diff = jnp.max(jnp.abs(fwd(q, k, v).astype(jnp.float32) - ref))
-        out[name] = {
-            "fwd_ms": _median_ms(fwd, q, k, v, iters=iters),
-            "fwd_bwd_ms": _median_ms(fwd_bwd, q, k, v, iters=iters),
-            "max_abs_diff_vs_einsum": float(diff),
-        }
+            fwd = jax.jit(f)
+            fwd_bwd = jax.jit(jax.grad(
+                lambda q, k, v: jnp.sum(f(q, k, v).astype(jnp.float32) * g),
+                argnums=(0, 1, 2),
+            ))
+            row[path] = {}
+            for what, fn in (("fwd_ms", fwd), ("fwd_bwd_ms", fwd_bwd)):
+                try:
+                    row[path][what] = _median_ms(fn, q, k, v, iters=iters)
+                except Exception as e:  # a shape the library refuses
+                    row[path][what] = f"{type(e).__name__}: {e}"[:200]
+            if "fwd_ms" not in row[path] or isinstance(
+                    row[path]["fwd_ms"], str):
+                continue
+            y = fwd(q, k, v).astype(jnp.float32)
+            if ref is None:
+                ref = y
+            else:
+                row[path]["max_abs_diff_vs_einsum"] = float(
+                    jnp.max(jnp.abs(y - ref)))
+        out["shapes"].append(row)
+        print(f"# {json.dumps(row)}", file=sys.stderr, flush=True)
 
     params = init_params(cfg, seed=0)
-    mel = jax.random.normal(keys[0], (batch, 2 * T, cfg.n_mels), jnp.float32)
-    encoder = {}
-    for name, policy in (("cudnn", layers.use_cudnn_attention),
-                         ("einsum", lambda q, mask: False)):
-        with mock.patch.object(layers, "use_cudnn_attention", policy):
-            enc = jax.jit(lambda p, m: encode(p, cfg, m, dtype=jnp.bfloat16))
-            encoder[name] = _median_ms(enc, params, mel, iters=iters // 4 + 1)
-    out["encoder_fwd_ms"] = encoder
+    mel = jax.random.normal(jax.random.PRNGKey(1), (batch, 2 * T, cfg.n_mels),
+                            jnp.float32)
+    out["encoder_fwd_ms"] = {
+        path: _median_ms(
+            jax.jit(lambda p, m, fused=path == "cudnn": encode(
+                p, cfg, m, dtype=jnp.bfloat16, cudnn=fused)),
+            params, mel, iters=iters // 4 + 1)
+        for path in ("cudnn", "einsum")
+    }
     out["batch"] = batch
     return out
 
@@ -980,9 +989,8 @@ def main():
     )
     ap.add_argument(
         "--encoder-attention", action="store_true",
-        help="time whisper-small encoder self-attention forward and "
-        "backward through cuDNN, the XLA einsum path and a Pallas-Triton "
-        "flash kernel",
+        help="time whisper-small self- and cross-attention forward and "
+        "backward through cuDNN and the XLA einsum path",
     )
     args = ap.parse_args()
 
@@ -1000,7 +1008,7 @@ def main():
         print(json.dumps({
             "metric": "whisper-small encoder self-attention time "
             f"(batch {batch}, bf16)",
-            "value": r["cudnn"]["fwd_bwd_ms"],
+            "value": r["shapes"][0]["cudnn"]["fwd_bwd_ms"],
             "unit": "ms fwd+bwd (cuDNN)",
             "vs_baseline": None,
             "timings": r,
@@ -1269,6 +1277,7 @@ def main():
         "mfu": round(r["mfu"], 4) if r["mfu"] is not None else None,
         "achieved_tflops": round(r["achieved_tflops"], 2),
         "batch": r["batch"],
+        "stages_ms": {k: round(v, 3) for k, v in r["stages_ms"].items()},
         "device": r["device"],
         "card": card,
         "note": note,

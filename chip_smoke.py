@@ -1,7 +1,8 @@
 """On-card smoke test: the main paths of whisper-ipa on one NVIDIA GPU.
 
     python chip_smoke.py            # one card: kernels, inference, training, serving
-    python chip_smoke.py --multi    # four cards: sharded training and serving only
+    python chip_smoke.py --multi    # four cards: sharded training and serving only,
+                                    # in float32 and in bfloat16
 
 Runs whisper-small at full width with random weights made from a seed, on
 audio synthesized from IPA strings (data/synth.py); nothing is fetched.
@@ -50,6 +51,19 @@ BF16_GRAD_TOL = 5e-2
 # cross-KV cache (1/254 of each position's range per element): RMS error
 # relative to the RMS of the reference logits.
 BF16_LOGITS_RMS_TOL = 5e-2
+# bf16 under sharding: a sharded reduction rounds differently from the
+# single-device one, so nothing is bit-equal. The loss is a mean over B*T
+# tokens of terms whose bf16 error is about 1e-2 of the logits' spread.
+BF16_SHARDED_LOSS_TOL = 5e-3
+# AdamW's first updates are close to -lr * sign(grad): bf16 noise flips
+# the sign only of near-zero gradients, a wrong gradient flips half.
+BF16_UPDATE_SIGN_AGREEMENT = 0.9
+# a greedy token of the sharded bf16 engine, scored by single-device bf16
+# logits along the same tokens, may trail the best allowed logit by this
+# much of the row's standard deviation: ten times the bf16 logits' RMS
+# error (about 1e-2 of it), while a wrong token trails the best of 51865
+# logits by several deviations.
+BF16_TOKEN_MARGIN = 0.1
 
 
 @dataclass
@@ -105,10 +119,12 @@ def _audio_batch(n, seed=0):
 
 # -- phase 1: kernels against their plain references --------------------
 
-def check_encoder_attention(cfg, batch=4, seed=0):
-    """Encoder self-attention in bf16, forward and gradient, through
-    models/layers.multi_head_attention (cuDNN's fused kernel on the GPU)
-    against the einsum path in float32 at highest precision."""
+def check_encoder_attention(cfg, batch=4, seed=0, q_len=None):
+    """Encoder self-attention in bf16 (or, with q_len, a query of that
+    length over the encoder's keys), forward and gradient, through
+    models/layers.multi_head_attention (cuDNN's fused kernel on the GPU
+    where the policy picks it) against the einsum path in float32 at
+    highest precision."""
     import jax
     import jax.numpy as jnp
 
@@ -116,11 +132,13 @@ def check_encoder_attention(cfg, batch=4, seed=0):
 
     H, T, d = cfg.n_audio_head, cfg.n_audio_ctx, cfg.n_audio_state
     keys = jax.random.split(jax.random.PRNGKey(seed), 4)
-    q, k, v, g = (jax.random.normal(kk, (batch, T, d), jnp.float32)
-                  for kk in keys)
+    k, v = (jax.random.normal(kk, (batch, T, d), jnp.float32)
+            for kk in keys[:2])
+    q, g = (jax.random.normal(kk, (batch, q_len or T, d), jnp.float32)
+            for kk in keys[2:])
     q16, k16, v16 = (x.astype(jnp.bfloat16) for x in (q, k, v))
-    print(f"  cuDNN policy on bf16 encoder shapes: "
-          f"{layers.use_cudnn_attention(q16, None)}")
+    print(f"  cuDNN policy at q={q16.shape[1]}, k={T}: "
+          f"{layers.use_cudnn_attention(q16, k16, None)}")
 
     def loss(f, q, k, v):
         return jnp.sum(f(q, k, v).astype(jnp.float32) * g)
@@ -146,7 +164,8 @@ def check_encoder_attention(cfg, batch=4, seed=0):
     for name, gr, rg in zip(("dq", "dk", "dv"), grads, ref_grads):
         errs[name] = _rel_err(gr, rg)
     for name, err in errs.items():
-        _check(f"encoder attention {name} (B={batch}, T={T}, H={H})",
+        _check(f"attention {name} (B={batch}, q={q16.shape[1]}, k={T}, "
+               f"H={H})",
                err, BF16_KERNEL_TOL if name == "fwd" else BF16_GRAD_TOL)
     return errs
 
@@ -227,6 +246,9 @@ def check_int8_cross_attention(cfg, batch=4, seed=0):
 def phase_kernels(cfg, batch=4, mel_time_batch=None):
     return {
         "encoder_attention": check_encoder_attention(cfg, batch),
+        # both sides of the policy's even-length rule, gradient included
+        "attention_q128": check_encoder_attention(cfg, batch, q_len=128),
+        "attention_q129": check_encoder_attention(cfg, batch, q_len=129),
         "log_mel": check_log_mel(cfg, batch, mel_time_batch),
         "int8_cross_attention": check_int8_cross_attention(cfg, batch),
     }
@@ -408,6 +430,18 @@ def _greedy_reference(params, cfg, audios, tok, max_new):
     return [r.tokens for r in res]
 
 
+def _submit_joining(eng, audios):
+    """Submit the first request, then the others while it decodes."""
+    started = threading.Event()
+    futs = [eng.submit(audios[0], on_token=lambda _: started.set())]
+    if not started.wait(timeout=900):
+        raise AssertionError("engine produced no token in 900 s")
+    for a in audios[1:]:
+        time.sleep(0.02)
+        futs.append(eng.submit(a))
+    return [f.result(timeout=900) for f in futs]
+
+
 def phase_serving(cfg, params, n_requests=5, slots=4, max_new=16,
                   mesh=None):
     """The continuous engine answers requests that join a running batch;
@@ -430,15 +464,7 @@ def phase_serving(cfg, params, n_requests=5, slots=4, max_new=16,
                                 max_new_tokens=max_new, steps_per_sync=2,
                                 language="en", tokenizer=tok, mesh=mesh)
         try:
-            started = threading.Event()
-            futs = [eng.submit(audios[0], on_token=lambda _: started.set())]
-            # the others arrive while the first is decoding
-            if not started.wait(timeout=900):
-                raise AssertionError("engine produced no token in 900 s")
-            for a in audios[1:]:
-                time.sleep(0.02)
-                futs.append(eng.submit(a))
-            results = [f.result(timeout=900) for f in futs]
+            results = _submit_joining(eng, audios)
             if mesh is not None:
                 _check_spread(eng.cache, "engine KV cache")
             stats = eng.stats()
@@ -472,6 +498,19 @@ def _check_spread(tree, what):
     print(f"  {what}: spread over {len(devices)} devices")
 
 
+def _train_batch(cfg, batch, token_len):
+    """Random mel and an SOT-prompted token batch ending in EOT."""
+    rng = np.random.default_rng(0)
+    mel = rng.standard_normal(
+        (batch, 2 * cfg.n_audio_ctx, cfg.n_mels)).astype(np.float32)
+    eot = 50257
+    tok = np.full((batch, token_len), 300, np.int32)
+    tok[:, :4] = [50258, 50259, 50359, 50363]
+    tok[:, 4:-1] = rng.integers(0, 50000, (batch, token_len - 5))
+    tok[:, -1] = eot
+    return mel, tok, eot
+
+
 def phase_multi_train(cfg, batch=8, token_len=16):
     """One train step on a data x model = 2 x 2 mesh, replicated, ZeRO-1
     and FSDP, each against the single-device step on the same batch."""
@@ -487,14 +526,7 @@ def phase_multi_train(cfg, batch=8, token_len=16):
         train_step)
 
     mesh = make_mesh(model=2, devices=jax.devices()[:4])
-    rng = np.random.default_rng(0)
-    mel = rng.standard_normal(
-        (batch, 2 * cfg.n_audio_ctx, cfg.n_mels)).astype(np.float32)
-    eot = 50257
-    tok = np.full((batch, token_len), 300, np.int32)
-    tok[:, :4] = [50258, 50259, 50359, 50363]
-    tok[:, 4:-1] = rng.integers(0, 50000, (batch, token_len - 5))
-    tok[:, -1] = eot
+    mel, tok, eot = _train_batch(cfg, batch, token_len)
     losses = {}
     with jax.default_matmul_precision("highest"):
         state, tx = create_train_state(init_params(cfg, seed=0),
@@ -542,6 +574,59 @@ def phase_multi_train(cfg, batch=8, token_len=16):
     return losses
 
 
+def phase_multi_train_bf16(cfg, batch=8, token_len=16):
+    """Two bf16 train steps with the encoder unfrozen, so the encoder's
+    attention runs forward and backward (cuDNN on the GPU), on the data x
+    model = 2 x 2 mesh, against the same two steps on one device: the
+    losses, and the signs of the encoder's update."""
+    import jax
+    import jax.numpy as jnp
+
+    from whisper_ipa.models import init_params
+    from whisper_ipa.parallel import make_mesh, shard_batch, shard_params
+    from whisper_ipa.train import create_train_state, train_step
+
+    mesh = make_mesh(model=2, devices=jax.devices()[:4])
+    mel, tok, eot = _train_batch(cfg, batch, token_len)
+    before = [np.asarray(x, np.float32)
+              for x in jax.tree.leaves(init_params(cfg, seed=0)["encoder"])]
+
+    def two_steps(params, mel, tok):
+        state, tx = create_train_state(params, learning_rate=1e-4,
+                                       freeze_encoder=False)
+        losses = []
+        for _ in range(2):
+            state, loss = train_step(state, mel, tok, cfg, tx, eot,
+                                     freeze_encoder=False,
+                                     dtype_name="bfloat16")
+            losses.append(float(loss))
+        return losses, [np.sign(np.asarray(x, np.float32) - b) for x, b in
+                        zip(jax.tree.leaves(state.params["encoder"]), before)]
+
+    single, single_sign = two_steps(init_params(cfg, seed=0),
+                                    jnp.asarray(mel), jnp.asarray(tok))
+    smel, stok = shard_batch(mesh, jnp.asarray(mel), jnp.asarray(tok))
+    params = shard_params(mesh, init_params(cfg, seed=0),
+                          tensor_parallel=True)
+    _check_spread(params, "bf16 tensor-parallel params")
+    sharded, sharded_sign = two_steps(params, smel, stok)
+    moved = np.concatenate([s.ravel() != 0 for s in single_sign])
+    same = np.concatenate([(s == t).ravel()
+                           for s, t in zip(single_sign, sharded_sign)])
+    agree = float(same[moved].mean())
+    print(f"  bf16 dp2_tp2 losses {sharded}, single-device {single}; encoder"
+          f" update sign agreement {agree:.4f} over {int(moved.sum())} "
+          f"weights (at least {BF16_UPDATE_SIGN_AGREEMENT})")
+    for i in range(2):
+        _check(f"bf16 dp2_tp2 step {i + 1} loss vs single-device",
+               abs(sharded[i] - single[i]) / abs(single[i]),
+               BF16_SHARDED_LOSS_TOL)
+    if agree < BF16_UPDATE_SIGN_AGREEMENT:
+        raise AssertionError(f"bf16 dp2_tp2 encoder update agrees in sign "
+                             f"on only {agree:.4f} of weights")
+    return {"single": single, "dp2_tp2": sharded, "sign_agreement": agree}
+
+
 def phase_multi_serving(cfg, params):
     """The engine with its slots sharded over four cards (--dp 4)."""
     import jax
@@ -550,6 +635,64 @@ def phase_multi_serving(cfg, params):
 
     return phase_serving(cfg, params, n_requests=5, slots=4,
                          mesh=make_mesh(devices=jax.devices()[:4]))
+
+
+def phase_multi_serving_bf16(cfg, params, n_requests=5, slots=4,
+                             max_new=16):
+    """The bf16 engine on a data x model = 2 x 2 mesh (slots over 'data',
+    weights and heads over 'model'). Single-device bf16 teacher-forced
+    logits along its tokens score each of them: each must be within
+    BF16_TOKEN_MARGIN of the best token the engine was allowed to pick."""
+    import jax
+    import jax.numpy as jnp
+
+    from whisper_ipa.audio import log_mel_spectrogram
+    from whisper_ipa.decode.decoding import build_blank_mask
+    from whisper_ipa.models.whisper import decoder_logits, encode
+    from whisper_ipa.parallel import make_mesh
+    from whisper_ipa.serve_continuous import ContinuousBatcher
+    from whisper_ipa.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(multilingual=True, num_languages=cfg.num_languages,
+                        language="en")
+    audios = list(_audio_batch(n_requests, seed=70))
+    eng = ContinuousBatcher(params, cfg, slots=slots, max_new_tokens=max_new,
+                            steps_per_sync=2, language="en", tokenizer=tok,
+                            bf16=True, mesh=make_mesh(
+                                model=2, devices=jax.devices()[:4]),
+                            tensor_parallel=True)
+    try:
+        got = [r["tokens"] for r in _submit_joining(eng, audios)]
+        _check_spread(eng.cache, "bf16 dp2_tp2 engine KV cache")
+        prefix, allowed = list(eng.prefix), np.asarray(eng.suppress)
+    finally:
+        eng.close()
+
+    seqs = [prefix + t + ([tok.eot] if len(t) < max_new else []) for t in got]
+    width = max(len(s) for s in seqs)
+    tokens = np.array([s + [tok.eot] * (width - len(s)) for s in seqs],
+                      np.int32)
+    mel = np.stack([log_mel_spectrogram(a, n_mels=cfg.n_mels)
+                    for a in audios])
+    logits = np.asarray(jax.jit(lambda p, m, t: decoder_logits(
+        p, cfg, t, encode(p, cfg, m, dtype=jnp.bfloat16),
+        dtype=jnp.bfloat16).astype(jnp.float32))(
+            params, jnp.asarray(mel), jnp.asarray(tokens)), np.float64)
+    blank = build_blank_mask(tok, cfg.n_vocab)
+    worst = 0.0
+    for i, seq in enumerate(seqs):
+        for pos in range(len(prefix), len(seq)):
+            row = logits[i, pos - 1]
+            lg = row + allowed + (blank if pos == len(prefix) else 0.0)
+            worst = max(worst, (lg.max() - row[seq[pos]]) / row.std())
+    print(f"  bf16 dp2_tp2 engine: {n_requests} requests, lengths "
+          f"{[len(t) for t in got]}; worst token trails the single-device "
+          f"best by {worst:.4f} deviations")
+    if worst > BF16_TOKEN_MARGIN:
+        raise AssertionError(f"bf16 dp2_tp2 engine token trails the "
+                             f"single-device best by {worst:.4f} > "
+                             f"{BF16_TOKEN_MARGIN}")
+    return {"worst_margin": worst, "tokens": sum(len(t) for t in got)}
 
 
 # -- entry point ----------------------------------------------------------
@@ -582,8 +725,14 @@ def main(argv=None):
     if args.multi:
         with log.phase("multi_train"):
             phase_multi_train(cfg)
+        with log.phase("multi_train_bf16"):
+            phase_multi_train_bf16(cfg)
+        params = init_params(cfg, seed=0)
         with log.phase("multi_serving"):
-            phase_multi_serving(cfg, init_params(cfg, seed=0))
+            phase_multi_serving(cfg, params)
+        with log.phase("multi_serving_bf16"):
+            phase_multi_serving_bf16(cfg, params)
+        del params
         peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use")
                  for d in jax.devices()]
         print(f"peak bytes in use per device: {peaks}")

@@ -179,21 +179,55 @@ def test_init_cache_padding_contract(int4):
 # -- kernel policy ----------------------------------------------------------
 
 @pytest.mark.parametrize(
-    "backend,dtype,tq,masked,expected",
+    "backend,dtype,tq,tk,masked,expected",
     [
-        ("gpu", jnp.bfloat16, 1500, False, True),
-        ("gpu", jnp.float16, 128, False, True),
-        ("gpu", jnp.float32, 1500, False, False),
-        ("gpu", jnp.bfloat16, 47, False, False),
-        ("gpu", jnp.bfloat16, 1500, True, False),
-        ("cpu", jnp.bfloat16, 1500, False, False),
+        ("gpu", jnp.bfloat16, 1500, 1500, False, True),
+        ("gpu", jnp.float16, 128, 1500, False, True),
+        ("gpu", jnp.float32, 1500, 1500, False, False),
+        ("gpu", jnp.bfloat16, 47, 1500, False, True),
+        ("gpu", jnp.bfloat16, 1500, 1500, True, False),
+        ("cpu", jnp.bfloat16, 1500, 1500, False, False),
+        ("gpu", jnp.bfloat16, 1, 1500, False, False),
+        ("gpu", jnp.bfloat16, 5, 1500, False, True),
+        ("gpu", jnp.bfloat16, 128, 1501, False, False),
     ],
 )
-def test_cudnn_policy(monkeypatch, backend, dtype, tq, masked, expected):
+def test_cudnn_policy(monkeypatch, backend, dtype, tq, tk, masked, expected):
     monkeypatch.setattr(jax, "default_backend", lambda: backend)
     q = jnp.zeros((1, tq, D), dtype)
-    mask = jnp.zeros((tq, tq)) if masked else None
-    assert layers.use_cudnn_attention(q, mask) is expected
+    k = jnp.zeros((1, tk, D), dtype)
+    mask = jnp.zeros((tq, tk)) if masked else None
+    assert layers.use_cudnn_attention(q, k, mask) is expected
+
+
+@pytest.mark.parametrize("tq", [47, 48])
+def test_cudnn_route_pads_odd_query(monkeypatch, tq):
+    """The cuDNN branch's reshapes and odd-length padding, with JAX's XLA
+    implementation standing in for cuDNN (which needs the card): output
+    and gradients equal the einsum path's."""
+    real = jax.nn.dot_product_attention
+    seen = []
+
+    def stand_in(*args, implementation=None, **kw):
+        seen.append((implementation, args[0].shape[1]))
+        return real(*args, implementation="xla", **kw)
+
+    monkeypatch.setattr(jax.nn, "dot_product_attention", stand_in)
+    q, k, v, g = _qkvg(tq, 64, seed=5)
+
+    def loss(cudnn, q, k, v):
+        out = layers.multi_head_attention(q, k, v, N_HEAD, cudnn=cudnn)
+        return jnp.sum(out * g), out
+
+    (_, out), grads = jax.value_and_grad(
+        lambda *a: loss(True, *a), (0, 1, 2), has_aux=True)(q, k, v)
+    (_, ref), ref_grads = jax.value_and_grad(
+        lambda *a: loss(False, *a), (0, 1, 2), has_aux=True)(q, k, v)
+    assert seen == [("cudnn", tq + tq % 2)]
+    assert out.shape == (1, tq, D)
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+    for gr, rg in zip(grads, ref_grads):
+        np.testing.assert_allclose(gr, rg, atol=1e-5)
 
 
 def test_cpu_bf16_encoder_attention_takes_einsum_path():

@@ -72,3 +72,24 @@ def test_main_refuses_cpu(capsys):
         chip_smoke.main([])
     assert "no GPU" in str(e.value)
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_multi_train_phase():
+    losses = chip_smoke.phase_multi_train(CFG, batch=4, token_len=8)
+    assert set(losses) == {"single", "dp2_tp2", "zero1", "fsdp"}
+
+
+def test_multi_train_bf16_phase():
+    out = chip_smoke.phase_multi_train_bf16(CFG, batch=4, token_len=8)
+    assert out["sign_agreement"] >= chip_smoke.BF16_UPDATE_SIGN_AGREEMENT
+
+
+def test_multi_serving_phase(params):
+    out = chip_smoke.phase_multi_serving(CFG, params)
+    assert out["requests"] == 5
+
+
+def test_multi_serving_bf16_phase(params):
+    out = chip_smoke.phase_multi_serving_bf16(CFG, params, n_requests=3,
+                                              max_new=6)
+    assert out["worst_margin"] <= chip_smoke.BF16_TOKEN_MARGIN

@@ -13,6 +13,8 @@ import re
 import unicodedata
 from typing import Dict, List
 
+from ....env import setting
+
 _BASE: Dict[str, str] = {
     "あ": "a", "い": "i", "う": "ɯ", "え": "e", "お": "o",
     "か": "ka", "き": "ki", "く": "kɯ", "け": "ke", "こ": "ko",
@@ -225,7 +227,7 @@ def _kanji_dict() -> dict:
             os.path.dirname(os.path.abspath(__file__)),
             "ja_readings_corpus.tsv",
         )
-        paths = [derived, os.environ.get("WHISPER_IPA_KANJI_DICT")]
+        paths = [derived, setting("KANJI_DICT")]
         for path in paths:
             if path and os.path.isfile(path):
                 with open(path, encoding="utf-8") as f:

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import WhisperConfig
+from ..env import setting
 from ..models.whisper import DecoderCache, decode_step, init_cache
 from .decoding import (
     DecodingOptions,
@@ -683,11 +684,9 @@ def beam_decode(
         if options.suppress_blank
         else jnp.zeros_like(suppress_mask)
     )
-    import os as _os
-
     # reorder-free v2 loop is the default; the legacy full-reorder loop
     # stays for A/B parity and perf regression checks
-    legacy = _os.environ.get("WHISPER_IPA_LEGACY_BEAM") == "1"
+    legacy = setting("LEGACY_BEAM") == "1"
     extra = (
         {}
         if legacy

@@ -17,11 +17,14 @@ Values are in {-1, 0, +1}.
 
 from __future__ import annotations
 
+import os
 import unicodedata
 from functools import lru_cache
 from typing import Dict, Optional
 
 import numpy as np
+
+from ..env import setting
 
 FEATURE_NAMES = (
     "syl", "son", "cons", "cont", "delrel", "lat", "nas", "strid", "voi",
@@ -301,11 +304,15 @@ def load_panphon_csv(path: str) -> int:
     return count
 
 
-import os as _os
+def load_panphon_csv_from_env() -> int:
+    """Load the CSV that WHISPER_IPA_PANPHON_CSV names, if it is a file."""
+    path = setting("PANPHON_CSV")
+    if path and os.path.isfile(path):
+        return load_panphon_csv(path)
+    return 0
 
-_csv_path = _os.environ.get("WHISPER_IPA_PANPHON_CSV")
-if _csv_path and _os.path.isfile(_csv_path):
-    load_panphon_csv(_csv_path)
+
+load_panphon_csv_from_env()
 
 # -- diacritic modification rules ----------------------------------------
 # mark -> {feature: value} applied on top of the base segment's vector

@@ -14,6 +14,8 @@ from typing import Sequence
 
 import numpy as np
 
+from ..env import setting
+
 _LIB_NAME = "libwipa_native.so"
 
 
@@ -21,7 +23,7 @@ def _find_library() -> str:
     here = os.path.dirname(os.path.abspath(__file__))
     repo_root = os.path.abspath(os.path.join(here, "..", ".."))
     candidates = [
-        os.environ.get("WHISPER_IPA_NATIVE_LIB"),
+        setting("NATIVE_LIB"),
         os.path.join(repo_root, "native", _LIB_NAME),
         os.path.join(here, _LIB_NAME),
     ]

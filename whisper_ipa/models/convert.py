@@ -23,6 +23,8 @@ from typing import Any, Dict, Tuple
 import jax.numpy as jnp
 import numpy as np
 
+from ..env import setting
+
 Params = Dict[str, Any]
 
 
@@ -391,7 +393,7 @@ def _guard_vocab_provenance(checkpoint_dir: str) -> None:
         "file, or set WHISPER_IPA_ALLOW_VOCAB_MISMATCH=1 to "
         "override."
     )
-    if os.environ.get("WHISPER_IPA_ALLOW_VOCAB_MISMATCH") == "1":
+    if setting("ALLOW_VOCAB_MISMATCH") == "1":
         global _vocab_mismatch_warned
         if not _vocab_mismatch_warned:
             import sys

@@ -123,23 +123,26 @@ def _merge_heads(x):
 
 
 # Kernel policy, the one place where the backend picks an implementation.
-# Unmasked, half-precision attention with a long query (the encoder's
-# self-attention, T = 1500) runs through cuDNN's fused flash attention on
-# the GPU, so the (B, H, Tq, Tk) logits and probabilities never reach
-# device memory. Everything else, and every backend but the GPU, takes
-# the einsum path below. Short queries (decode steps, speculative verify,
-# the teacher-forced cross-attention at q = token_len - 1) stay on the
-# einsum path: there the probabilities are no larger than K/V, so the
-# fused kernel has no traffic to save.
-_FUSED_MIN_QLEN = 128
+# Unmasked, half-precision attention runs through cuDNN's fused flash
+# attention on the GPU, so the (B, H, Tq, Tk) logits and probabilities
+# never reach device memory. Everything else, and every backend but the
+# GPU, takes the einsum path below. Timed on an H100 SXM
+# (bench.py --encoder-attention, 1500 keys, bf16): cuDNN wins from q = 5
+# up (2.0x forward at q = 5, batch 192; 1.5x forward+backward at q = 6;
+# 2.8x at q = 1500), and ties the einsum path at q = 1, so single-query
+# decode steps stay on einsum.
+_CUDNN_MIN_QLEN = 2
 
 
-def use_cudnn_attention(q, mask) -> bool:
+def use_cudnn_attention(q, k, mask) -> bool:
     """True when multi_head_attention hands (q, k, v) to cuDNN."""
     return (
         mask is None
         and q.dtype in (jnp.bfloat16, jnp.float16)
-        and q.shape[1] >= _FUSED_MIN_QLEN
+        and q.shape[1] >= _CUDNN_MIN_QLEN
+        # JAX's cuDNN route refuses the backward pass for odd lengths; an
+        # odd query is padded below, an odd key length cannot be
+        and k.shape[1] % 2 == 0
         and jax.default_backend() == "gpu"
     )
 
@@ -211,20 +214,26 @@ def _mha_int4kv(qh, k_p4, k_scale, v_p4, v_scale):
 
 
 def multi_head_attention(
-    q, k, v, n_head: int, mask: Optional[jax.Array] = None
+    q, k, v, n_head: int, mask: Optional[jax.Array] = None,
+    cudnn: Optional[bool] = None,
 ):
     """Scaled dot-product attention over merged-head projections.
 
     q/k/v: (B, Tq/Tk, d). mask: additive, broadcastable to (B, H, Tq, Tk).
-    Softmax accumulates in float32.
+    Softmax accumulates in float32. cudnn: None follows the kernel policy
+    (use_cudnn_attention); True or False forces the path, for timing both.
     """
     d_head = q.shape[-1] // n_head
     scale = d_head ** -0.25
 
-    if use_cudnn_attention(q, mask):
+    if use_cudnn_attention(q, k, mask) if cudnn is None else cudnn:
         # (B, T, d) -> (B, T, H, Dh) is a free reshape: cuDNN takes the
         # BTNH layout, so no head transposes surround the kernel
         b, tq, _ = q.shape
+        if tq % 2:
+            # unmasked query rows are independent: one zero row makes the
+            # length even and is dropped from the output
+            q = jnp.pad(q, ((0, 0), (0, 1), (0, 0)))
 
         def heads(x):
             return x.reshape(x.shape[0], x.shape[1], n_head, d_head)
@@ -233,7 +242,7 @@ def multi_head_attention(
             heads(q), heads(k), heads(v),
             scale=float(d_head ** -0.5), implementation="cudnn",
         )
-        return out.reshape(b, tq, n_head * d_head)
+        return out[:, :tq].reshape(b, tq, n_head * d_head)
 
     return _attention_core(q, k, v, mask, n_head=n_head, scale=scale)
 
@@ -337,11 +346,12 @@ def multi_head_attention_beam_cache(
     return out.reshape(B, J, d)
 
 
-def attention_block(x, p, n_head: int, mask=None, kv=None):
+def attention_block(x, p, n_head: int, mask=None, kv=None, cudnn=None):
     """Self- or cross-attention through a Whisper attention param group.
 
     p: {"query","key","value","out"}. When kv is given (cross-attention or
     cached keys/values) it is a tuple (k, v) of already-projected tensors.
+    cudnn: as in multi_head_attention.
     """
     q = linear(x, p["query"])
     if kv is None:
@@ -349,7 +359,7 @@ def attention_block(x, p, n_head: int, mask=None, kv=None):
         v = linear(x, p["value"])
     else:
         k, v = kv
-    out = multi_head_attention(q, k, v, n_head, mask)
+    out = multi_head_attention(q, k, v, n_head, mask, cudnn)
     return linear(out, p["out"]), (k, v)
 
 

@@ -147,7 +147,7 @@ def _stack_blocks(blocks: List[Dict]) -> Dict:
 # -- encoder --------------------------------------------------------------
 
 def encode(params: Params, cfg: WhisperConfig, mel, dtype=jnp.float32,
-           remat: bool = False):
+           remat: bool = False, cudnn: Optional[bool] = None):
     """Audio encoder: (B, 3000, n_mels) -> (B, 1500, d).
 
     remat=True checkpoints each encoder layer — only relevant to FULL
@@ -157,6 +157,9 @@ def encode(params: Params, cfg: WhisperConfig, mel, dtype=jnp.float32,
     activations stacked over the scan (1.65 GB at batch 16,
     whisper-small, per the OOM dump); rematerializing the layer trades
     ~1/3 extra encoder FLOPs for all of that.
+
+    cudnn: the self-attention path (layers.multi_head_attention); None
+    follows the kernel policy.
     """
     enc = params["encoder"]
     x = mel.astype(dtype)
@@ -170,7 +173,8 @@ def encode(params: Params, cfg: WhisperConfig, mel, dtype=jnp.float32,
 
     def body(x, block):
         h, _ = attention_block(
-            layer_norm(x, block["attn_ln"]), block["attn"], cfg.n_audio_head
+            layer_norm(x, block["attn_ln"]), block["attn"], cfg.n_audio_head,
+            cudnn=cudnn,
         )
         x = x + h
         x = x + mlp_block(layer_norm(x, block["mlp_ln"]), block)

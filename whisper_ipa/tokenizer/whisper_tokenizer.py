@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 from functools import cached_property
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..env import PREFIX, setting
 from .bpe import BPE, byte_level_ranks, load_tiktoken_ranks
 
 # The 99 Whisper language codes in canonical id order; large-v3 appends "yue".
@@ -50,11 +51,11 @@ LANGUAGES_V3 = LANGUAGES + ("yue",)
 N_TIMESTAMPS = 1501  # <|0.00|> .. <|30.00|> in 0.02 s increments
 
 # Environment variable pointing at a real multilingual.tiktoken rank file.
-RANKS_ENV_VAR = "WHISPER_IPA_TIKTOKEN"
+RANKS_ENV_VAR = PREFIX + "TIKTOKEN"
 
 
 def _find_ranks_file(explicit: Optional[str]) -> Optional[str]:
-    candidates = [explicit, os.environ.get(RANKS_ENV_VAR)]
+    candidates = [explicit, setting("TIKTOKEN")]
     here = os.path.dirname(os.path.abspath(__file__))
     candidates += [
         os.path.join(here, "assets", "multilingual.tiktoken"),

@@ -9,8 +9,10 @@ parallelism, and a real resume path.
 
 from __future__ import annotations
 
+import glob
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import jax
@@ -20,6 +22,7 @@ import numpy as np
 from ..config import WhisperConfig, get_config
 from ..data.dataset import IPADataset, PrefetchLoader, create_data_loader
 from ..decode import DecodingOptions, decode
+from ..env import setting
 from ..metrics import evaluate_batch
 from ..models import init_params, load_safetensors_flat, params_from_flat
 from ..models.whisper import count_parameters
@@ -105,15 +108,18 @@ def load_or_init_params(model_name: str, cfg: WhisperConfig, weights: Optional[s
     if weights and os.path.isfile(weights):
         print(f"Loading weights from {weights}")
         return params_from_flat(load_safetensors_flat(weights))
-    candidates = [
-        os.environ.get("WHISPER_IPA_WEIGHTS_DIR", ""),
-        os.path.expanduser("~/.cache/whisper_ipa"),
-    ]
+    cache = os.path.expanduser("~/.cache/whisper_ipa")
+    candidates = [setting("WEIGHTS_DIR", ""), cache]
     for root in candidates:
         path = os.path.join(root, f"{cfg.name}.safetensors")
         if root and os.path.isfile(path):
             print(f"Loading weights from {path}")
             return params_from_flat(load_safetensors_flat(path))
+    # the cache directory's name before the package took its present name
+    for path in sorted(glob.glob(f"{cache}_*/{cfg.name}.safetensors")):
+        warnings.warn(f"loading weights from a former cache directory, "
+                      f"{path}; move them to {cache}", FutureWarning)
+        return params_from_flat(load_safetensors_flat(path))
     print(
         f"No pretrained weights found for {model_name!r}; "
         "initializing randomly (set --weights or WHISPER_IPA_WEIGHTS_DIR)"
